@@ -3,18 +3,28 @@
 
     python3 chip_smoke.py
 
-Builds the three hand-written kernels from ``src/repro_torch/csrc`` (one
+Builds the five hand-written kernels from ``src/repro_torch/csrc`` (one
 nvcc per source, in parallel), holds each kernel against its plain PyTorch
-version on the card, then drives reduce -> repack -> persist through
-``make_topo_plan`` at three sizes: the n64 serve rung (4096 graphs), the DD
-rung of Table 2 (256 graphs of 320 vertices) and Table 1's protocol (16
-graphs of 1024 vertices).  CUDA diagrams and masks are compared bitwise
-with the same functions run on the CPU.  Then each kernel is timed at the
-largest input each phase gave it, and one n64 execution is profiled for
+version on the card, then drives the port's two paths:
+
+* reduce -> repack -> persist through ``make_topo_plan`` at three sizes: the
+  n64 serve rung (4096 graphs), the DD rung of Table 2 (256 graphs of 320
+  vertices) and Table 1's protocol (16 graphs of 1024 vertices);
+* the paper's Fig 2 path: clustering coefficients (the common-neighbors
+  kernel) on the n64 batch, on Table 1's batch and on the TWITTER surrogate;
+  a TopoIndex over the n64 diagrams (embedding, the pairwise-L1 Gram,
+  kNN queries without and with the LSH stage, a save/load round trip); and
+  the three probes of ``benchmarks/fig2_clustering.py``, whose persistence-
+  kernel clustering must reach purity and accuracy >= 0.66.
+
+CUDA results are compared with the same functions run on the CPU: bitwise
+where the computation is exact, within a stated tolerance where float sums
+run in another order.  Then each kernel is timed at the largest input each
+phase gave it, and one n64 execution and one index run are profiled for
 device time by kernel.  Each phase prints one JSON line; any failure exits
-non-zero.  The last two lines are the ``kernels`` summary
-(launches on the main path, error against the plain version, times and
-bounds) after the card's name and power limit, and the ``ok`` line.
+non-zero.  The last two lines are the ``kernels`` summary (launches on the
+main path, error against the plain version, times and bounds) after the
+card's name and power limit, and the ``ok`` line.
 """
 from __future__ import annotations
 
@@ -26,21 +36,30 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and the CUDA-core
-# (non-tensor) f32 rate, used as the rate of the integer word ops
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and one 32-bit
+# instruction per CUDA-core lane per clock (132 SMs x 128 lanes x 1.98 GHz;
+# the data sheet's 67 TFLOP/s f32 counts an FMA as two), the rate of the
+# kernels' integer word ops and non-FMA f32 ops
 HBM_BYTES_PER_S = 3.35e12
-CUDA_CORE_OPS_PER_S = 67e12
+LANE_OPS_PER_S = 33.5e12
 
 REPLACES = {
     "kcore_peel": "src/repro/kernels/kcore_peel.py:42",
     "domination": "src/repro/kernels/domination.py:49",
     "gf2_reduce": "src/repro/kernels/gf2_reduce.py:136",
+    "common_neighbors": "src/repro/kernels/common_neighbors.py:37",
+    "pairwise_l1": "src/repro/kernels/pairwise_gram.py:45",
 }
 # the batched Pallas form, gf2_reduce_batch_pallas, is the same CUDA kernel
 ALSO_REPLACES = {"gf2_reduce": "src/repro/kernels/gf2_reduce.py:167"}
 SOURCE = {k: f"src/repro_torch/csrc/{k}.cu" for k in REPLACES}
 N64_CAPS = dict(edge_cap=320, tri_cap=512)
 N320_CAPS = dict(edge_cap=1024, tri_cap=256)
+# the caps benchmarks/fig2_clustering.py gives each probe
+FIG2_ER_CAPS = dict(edge_cap=128, tri_cap=512)
+FIG2_TWITTER_CAPS = dict(edge_cap=192, tri_cap=192)
+FIG2_FAMILY_CAPS = dict(edge_cap=160, tri_cap=384)
+L1_TOLERANCE = "1e-5 * sum_d(|x_d| + |y_d|) + 1e-6"
 
 
 class SmokeFailure(RuntimeError):
@@ -83,10 +102,17 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
+def l1_tolerance(x, y):
+    """(M, N) bound on |kernel - plain| of a pairwise-L1 Gram: f32 sums of
+    D nonnegative terms in another order (L1_TOLERANCE)."""
+    return (1e-5 * (x.abs().sum(1)[:, None] + y.abs().sum(1)[None, :])
+            + 1e-6)
+
+
 def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
     """Least time in ms the card could take, and what bounds it."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
+    t_ops = ops / LANE_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -167,15 +193,18 @@ def _bit31_blocks(g, s, r, seed, device):
 
 def phase_kernel_checks(dev) -> dict:
     """Every kernel against its plain version at edge-case shapes: ragged
-    N, empty graphs, rows past shared memory, bit-31 lows, and a gf2 block
-    far larger than a CTA's shared memory."""
+    N, empty graphs and batches, complete graphs, rows past shared memory,
+    bit-31 lows, a gf2 block far larger than a CTA's shared memory, and
+    Gram shapes that leave ragged tiles, with x = y."""
     import torch
     from repro_torch.core.filtration import build_filtered_complex
     from repro_torch.core.persistence import _block_caps, pack_boundary_blocks
     from repro_torch.kernels import ref
+    from repro_torch.kernels.common_neighbors import common_neighbors_cuda
     from repro_torch.kernels.domination import domination_cuda
     from repro_torch.kernels.gf2_reduce import gf2_reduce_cuda
     from repro_torch.kernels.kcore_peel import kcore_peel_cuda
+    from repro_torch.kernels.pairwise_gram import pairwise_l1_cuda
 
     cases = []
 
@@ -225,8 +254,51 @@ def phase_kernel_checks(dev) -> dict:
     for d in range(2):
         record("gf2_reduce", list(big[d].shape),
                max_abs_err(got[d], ref.gf2_reduce_ref(big[d], caps[d])))
+
+    # common_neighbors: ragged N up to 2048, both tile-pass shapes, an empty
+    # batch, and complete (every edge counts N - 2) and empty graphs
+    for n in (1, 31, 32, 33, 64, 320, 1024, 2048):
+        adj, _ = _random_graphs(3, n, min(0.5, 8.0 / n), seed=n + 1,
+                                device=dev)
+        want = ref.common_neighbors_ref(adj)
+        for rows in (8, 32):
+            record("common_neighbors", [3, n, rows], max_abs_err(
+                [common_neighbors_cuda(adj, rows)], [want]))
+    for n in (5, 100):
+        full = ~torch.eye(n, dtype=torch.bool, device=dev)[None]
+        none = torch.zeros_like(full)
+        got = common_neighbors_cuda(torch.cat([full, none]).contiguous())
+        check(bool((got[0][full[0]] == n - 2).all())
+              and not bool(got[0].diagonal().any()) and not bool(got[1].any()),
+              f"common_neighbors: complete/empty graphs of {n}")
+        record("common_neighbors", [2, n, "complete+empty"], max_abs_err(
+            [got], [ref.common_neighbors_ref(torch.cat([full, none]))]))
+    check(common_neighbors_cuda(torch.zeros((0, 8, 8), dtype=torch.bool,
+                                            device=dev)).shape == (0, 8, 8),
+          "common_neighbors on an empty batch")
+
+    # pairwise_l1: ragged M, N (M != N and x = y) and D, values up to 64
+    gen = torch.Generator(device="cpu").manual_seed(17)
+    for d in (1, 33, 652):
+        rows = {m: (torch.rand((m, d), generator=gen) * 64).to(dev)
+                for m in (1, 7, 129, 4096)}
+        for m, x in rows.items():
+            for n, y in rows.items():
+                want = ref.pairwise_l1_ref(x, y)
+                for tile in ((64, 128) if m == n else (64,)):
+                    got = pairwise_l1_cuda(x, y, tile)
+                    err = (got - want).abs()
+                    ok = bool((err <= l1_tolerance(x, y)).all())
+                    if m == n:  # x = y: the diagonal is exactly 0
+                        ok = ok and not bool(got.diagonal().any())
+                    cases.append({"kernel": "pairwise_l1",
+                                  "shape": [m, n, d, tile],
+                                  "max_abs_err": float(err.max()),
+                                  "within_tolerance": ok})
+                    check(ok, f"pairwise_l1 {[m, n, d, tile]}: kernel "
+                              f"outside {L1_TOLERANCE} of the plain version")
     return {"phase": "kernels_check", "cases": len(cases),
-            "mismatches": 0, "detail": cases}
+            "mismatches": 0, "l1_tolerance": L1_TOLERANCE, "detail": cases}
 
 
 class Recorder:
@@ -240,9 +312,13 @@ class Recorder:
     def install(self):
         from repro_torch.kernels import ops
 
-        originals = {"kcore_peel": ops.kcore_peel_cuda,
-                     "domination": ops.domination_cuda,
-                     "gf2_reduce": ops.gf2_reduce_cuda}
+        originals = {name: getattr(ops, f"{name}_cuda") for name in REPLACES}
+        sizes = {"kcore_peel": lambda adj, *a: adj.numel(),
+                 "domination": lambda adj, *a: adj.numel(),
+                 "gf2_reduce": lambda blocks, *a: sum(b.numel()
+                                                      for b in blocks),
+                 "common_neighbors": lambda adj, *a: adj.numel(),
+                 "pairwise_l1": lambda x, y, *a: x.shape[0] * y.numel()}
 
         def wrap(name, fn, size_of):
             def recorded(*args):
@@ -254,22 +330,16 @@ class Recorder:
                 return fn(*args)
             return recorded
 
-        ops.kcore_peel_cuda = wrap("kcore_peel", originals["kcore_peel"],
-                                   lambda adj, *a: adj.numel())
-        ops.domination_cuda = wrap("domination", originals["domination"],
-                                   lambda adj, *a: adj.numel())
-        ops.gf2_reduce_cuda = wrap("gf2_reduce", originals["gf2_reduce"],
-                                   lambda blocks, *a: sum(b.numel()
-                                                          for b in blocks))
+        for name, fn in originals.items():
+            setattr(ops, f"{name}_cuda", wrap(name, fn, sizes[name]))
         return originals
 
     @staticmethod
     def uninstall(originals):
         from repro_torch.kernels import ops
 
-        ops.kcore_peel_cuda = originals["kcore_peel"]
-        ops.domination_cuda = originals["domination"]
-        ops.gf2_reduce_cuda = originals["gf2_reduce"]
+        for name, fn in originals.items():
+            setattr(ops, f"{name}_cuda", fn)
 
 
 def _clone(args):
@@ -319,7 +389,8 @@ def _subset(g, idx):
 
 def phase_signature(name, g, caps, n_cpu, n_off, launches, recorder):
     """Drive the two-phase plan on CUDA; check it against the CPU port and
-    against the single-phase plan; time reduce and persist."""
+    against the single-phase plan; time reduce and persist.  Returns the
+    phase's record and the Diagrams of its main-path run."""
     import torch
     from repro_torch.core.api import make_topo_plan
     from repro_torch.core.persistence import diagrams_bitwise_equal
@@ -358,7 +429,7 @@ def phase_signature(name, g, caps, n_cpu, n_off, launches, recorder):
     e0 = max(int(g.n_edges().sum()), 1)
     total_ms = (t2 - t1) * 1e3
     reduce_ms = (t1 - t0) * 1e3
-    return {"phase": name, "graphs": g.batch, "n_pad": g.n, **caps,
+    return d, {"phase": name, "graphs": g.batch, "n_pad": g.n, **caps,
             "v_reduction_pct": 100.0 * (v0 - int(report.n_vertices.sum())) / v0,
             "e_reduction_pct": 100.0 * (e0 - int(report.n_edges.sum())) / e0,
             "rung_histogram": {f"n{k}": v for k, v in
@@ -403,23 +474,355 @@ def phase_table1(g, launches, recorder) -> dict:
     return out
 
 
-def phase_profile(g, caps) -> dict:
-    """Device time by kernel over one steady n64 execution (torch.profiler,
-    CUDA activity), the device's idle share of the wall time, and the time
-    of the three ported kernels.  Runs after the timed executions: the
-    profiler's own cost is in its wall time, not in theirs."""
+def _host_ms(fn, reps: int = 5) -> float:
+    """Mean host-clock milliseconds of ``fn()``, device-synchronised, after
+    one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _mean_cc(cc, mask):
+    """(B,) mean clustering coefficient of each graph's live vertices."""
+    return cc.sum(-1) / mask.sum(-1).clamp(min=1)
+
+
+def _add_counts(launches, counts) -> dict:
+    for k in launches:
+        launches[k] += counts[k]
+    return {k: counts[k] for k in launches}
+
+
+def phase_clustering(name, g, launches, recorder) -> dict:
+    """``clustering_coefficients`` through the common-neighbors kernel,
+    held bitwise against the CPU port; host-clock time of a steady call."""
+    import torch
+    from repro_torch.kernels.ops import clustering_coefficients
+
+    cc, counts, first_s = _drive(recorder, name, clustering_coefficients,
+                                 g.adj, g.mask)
+    want = clustering_coefficients(g.adj.cpu(), g.mask.cpu())
+    check(torch.equal(cc.cpu(), want),
+          f"{name}: CUDA and CPU clustering coefficients differ")
+    check(bool(((cc >= 0) & (cc <= 1)).all()), f"{name}: cc outside [0, 1]")
+    ms = _host_ms(lambda: clustering_coefficients(g.adj, g.mask))
+    return {"phase": name, "graphs": g.batch, "n_pad": g.n,
+            "mean_clustering": float(_mean_cc(cc, g.mask).mean()),
+            "first_run_ms": first_s * 1e3, "ms": ms,
+            "graphs_per_s": g.batch / (ms / 1e3),
+            "launches": _add_counts(launches, counts),
+            "cpu_bitwise_equal": True}
+
+
+def phase_clustering_twitter(dev, launches, recorder, n_cpu=64) -> dict:
+    """The TWITTER surrogate whole (973 graphs, n_pad 128): its mean
+    clustering, and its mean PD_1 count through ``topological_signature``
+    with fig2's caps; the Diagrams of the first graphs are held bitwise
+    against the CPU port."""
+    from repro_torch.core.api import topological_signature
+    from repro_torch.core.persistence import Diagrams, diagrams_bitwise_equal
+    from repro_torch.data.graphs import TABLE2, load_dataset
+
+    g = load_dataset("TWITTER", 31, batch=TABLE2["TWITTER"].n_graphs,
+                     device=dev)
+    out = phase_clustering("clustering_twitter", g, launches, recorder)
+
+    def signature(gb):
+        return topological_signature(gb, dim=1, method="both",
+                                     **FIG2_TWITTER_CAPS)
+
+    d, counts, seconds = _drive(recorder, "clustering_twitter", signature, g)
+    d_cpu = signature(_subset(g, list(range(n_cpu))).to("cpu"))
+    check(diagrams_bitwise_equal(d_cpu, Diagrams(*(
+        getattr(d, k)[:n_cpu] for k in ("birth", "death", "dim", "valid")))),
+        "clustering_twitter: CUDA and CPU Diagrams differ")
+    out.update(mean_pd1_features=float(d.count(1).float().mean()),
+               **FIG2_TWITTER_CAPS, signature_ms=seconds * 1e3,
+               signature_launches=_add_counts(launches, counts),
+               cpu_bitwise_equal_diagrams=n_cpu)
+    return out
+
+
+def _rank_mismatches(rows_a, rows_b, dist, tol) -> tuple[int, int]:
+    """Ranks where two k-NN answers name different rows: (how many are not
+    explained by a near tie, how many are: the two rows' distances, in
+    ``dist``, lie within ``tol`` of each other)."""
+    import numpy as np
+
+    qi, ri = np.nonzero(rows_a != rows_b)
+    a, b = rows_a[qi, ri], rows_b[qi, ri]
+    near = (np.abs(dist[qi, a] - dist[qi, b])
+            <= np.maximum(tol[qi, a], tol[qi, b]))
+    return int((~near).sum()), int(near.sum())
+
+
+def phase_index(d64, dev, launches, recorder, n_queries=256, k=10,
+                n_cpu_rows=512) -> dict:
+    """TopoIndex(embedding="both") at the default widths over the n64
+    diagrams: add, the 4096 x 4096 Gram, k-NN queries without and with the
+    LSH stage, and a save/load round trip, each held against the CPU port
+    (the Gram on a slice of ``n_cpu_rows`` rows)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.core.api import make_topo_plan
+    from repro_torch.index import TopoIndex, TopoIndexConfig
+    from repro_torch.kernels import ops
+
+    cfg = TopoIndexConfig(embedding="both")
+    cfg_lsh = dataclasses.replace(cfg, coarse="lsh")
+    plan = make_topo_plan(dim=1, method="both", repack="on", **N64_CAPS)
+    dq = plan.execute(n64_batch(dev, batch=n_queries, seed=101))
+    index = TopoIndex(cfg, device=dev)
+    index_lsh = TopoIndex(cfg_lsh, device=dev)
+
+    def run():
+        index.add(d64)
+        index_lsh.add(d64)
+        return index.gram(), index.query(dq, k), index_lsh.query(dq, k)
+
+    (gram, q_none, q_lsh), counts, first_s = _drive(recorder, "index_n64",
+                                                    run)
+    out = {"phase": "index_n64", "rows": len(index), "width": cfg.width,
+           "queries": n_queries, "k": k, "first_run_ms": first_s * 1e3,
+           "launches": _add_counts(launches, counts)}
+    check(bool(torch.isfinite(gram).all()) and not bool(gram.diagonal().any()),
+          "index_n64: Gram not finite or its diagonal not 0")
+
+    # the CPU port on the same diagrams
+    cpu = TopoIndex(cfg, device="cpu")
+    cpu_lsh = TopoIndex(cfg_lsh, device="cpu")
+    d_cpu, dq_cpu = d64.to("cpu"), dq.to("cpu")
+    cpu.add(d_cpu)
+    cpu_lsh.add(d_cpu)
+    check(np.allclose(index._emb, cpu._emb, rtol=1e-5, atol=1e-6),
+          "index_n64: CUDA and CPU embeddings differ beyond rtol 1e-5")
+    e_cpu = torch.from_numpy(cpu._emb)
+    g_cpu = ops.pairwise_l1(e_cpu[:n_cpu_rows].contiguous(), e_cpu)
+    gram_err = (gram[:n_cpu_rows].cpu() - g_cpu).abs()
+    check(bool((gram_err <= l1_tolerance(e_cpu[:n_cpu_rows], e_cpu)).all()),
+          f"index_n64: Gram outside {L1_TOLERANCE} of the CPU port")
+    eq_cpu = cpu.embed(dq_cpu)
+    dist = ops.pairwise_l1(eq_cpu, e_cpu).numpy()
+    tol = l1_tolerance(eq_cpu, e_cpu).numpy()
+    for mode, idx, idx_cpu, got in (("none", index, cpu, q_none),
+                                    ("lsh", index_lsh, cpu_lsh, q_lsh)):
+        want = idx_cpu.query(dq_cpu, k)
+        bad, near = _rank_mismatches(np.asarray(got.rows),
+                                     np.asarray(want.rows), dist, tol)
+        check(bad == 0, f"index_n64 coarse={mode}: {bad} ids differ from the "
+                        "CPU port beyond a near tie")
+        out[f"query_{mode}"] = {"near_tie_swaps": near,
+                                "stage": got.stats["stage"],
+                                "ms": _host_ms(lambda: idx.query(dq, k))}
+    recall = np.mean([len(set(a) & set(b)) / k
+                      for a, b in zip(q_lsh.ids, q_none.ids)])
+
+    # save -> load: the same answers from the loaded index
+    path = ROOT / "build" / "chip_smoke_index.npz"
+    path.parent.mkdir(exist_ok=True)
+    try:
+        index_lsh.save(str(path))
+        loaded = TopoIndex.load(str(path), device=dev)
+    finally:
+        path.unlink(missing_ok=True)
+    q2 = loaded.query(dq, k)
+    check(q2.ids == q_lsh.ids and np.array_equal(q2.distances, q_lsh.distances)
+          and np.array_equal(loaded._codes, index_lsh._codes),
+          "index_n64: save/load changed the answers")
+    out.update(
+        embeddings_bitwise_equal_share=float(
+            (index._emb == cpu._emb).mean()),
+        lsh_codes_equal=bool(np.array_equal(index_lsh._codes,
+                                            cpu_lsh._codes)),
+        gram_max_abs_err_vs_cpu=float(gram_err.max()),
+        cpu_gram_rows=n_cpu_rows, l1_tolerance=L1_TOLERANCE,
+        lsh_recall_at_k=float(recall), save_load_equal=True,
+        add_ms=_host_ms(lambda: TopoIndex(cfg, device=dev).add(d64), reps=3),
+        gram_ms=_host_ms(index.gram))
+    return out, (index, index_lsh, dq, k)
+
+
+def kernel_kmeans(kmat, n_clusters: int, seed: int = 0, n_iters: int = 30):
+    """Kernel k-means on a precomputed PSD kernel matrix (numpy; the copy
+    of ``benchmarks/fig2_clustering.py``'s)."""
+    import numpy as np
+
+    n = kmat.shape[0]
+    rng = np.random.default_rng(seed)
+    assign = rng.integers(0, n_clusters, n)
+    diag = np.diag(kmat)
+    for _ in range(n_iters):
+        dist = np.empty((n, n_clusters))
+        for c in range(n_clusters):
+            in_c = assign == c
+            if not in_c.any():  # reseed an empty cluster
+                far = int(np.argmax(dist[:, :c].min(axis=1))) if c else 0
+                in_c = np.zeros(n, bool)
+                in_c[far] = True
+            kc = kmat[:, in_c]
+            dist[:, c] = (diag - 2.0 * kc.mean(axis=1)
+                          + kmat[np.ix_(in_c, in_c)].mean())
+        new = dist.argmin(axis=1)
+        if (new == assign).all():
+            break
+        assign = new
+    return assign
+
+
+def cluster_purity(assign, labels) -> float:
+    """Majority-label purity of a clustering against the families."""
+    import numpy as np
+
+    correct = sum(np.bincount(labels[assign == c]).max()
+                  for c in np.unique(assign))
+    return correct / len(labels)
+
+
+def kernel_ncc_accuracy(kmat, labels, train) -> float:
+    """Held-out accuracy of a kernel nearest-centroid classifier."""
+    import numpy as np
+
+    test = ~train
+    classes = np.unique(labels[train])
+    diag = np.diag(kmat)[test]
+    dist = np.empty((test.sum(), len(classes)))
+    for ci, c in enumerate(classes):
+        in_c = train & (labels == c)
+        dist[:, ci] = (diag - 2.0 * kmat[np.ix_(test, in_c)].mean(axis=1)
+                       + kmat[np.ix_(in_c, in_c)].mean())
+    pred = classes[dist.argmin(axis=1)]
+    return float((pred == labels[test]).mean())
+
+
+def _fig2_probe3(dev, per_family, seed=5):
+    """Probe 3's diagrams (three families, ``per_family`` graphs each),
+    family labels, and a TopoIndex over them."""
+    import numpy as np
+    import torch
+    from repro_torch.core.api import topological_signature
+    from repro_torch.core.persistence import Diagrams
+    from repro_torch.data import graphs as gd
+    from repro_torch.index import TopoIndex, TopoIndexConfig
+
+    families = (lambda s: gd.watts_strogatz(s, per_family, 24, 20, 4, 0.1,
+                                            device=dev),
+                lambda s: gd.erdos_renyi(s, per_family, 24, 20, 0.45,
+                                         device=dev),
+                lambda s: gd.barabasi_albert(s, per_family, 24, 20, 1,
+                                             device=dev))
+    ds = [topological_signature(gd.with_degree_filtration(gen(seed + i)),
+                                dim=1, method="both", **FIG2_FAMILY_CAPS)
+          for i, gen in enumerate(families)]
+    d = Diagrams(*(torch.cat([getattr(x, k) for x in ds])
+                   for k in ("birth", "death", "dim", "valid")))
+    # "both": tree-like and dense families both have near-empty PD_1, so
+    # PD_0 statistics must help separate them (the benchmark's setting)
+    index = TopoIndex(TopoIndexConfig(embedding="both", k=1, n_points=12,
+                                      n_dirs=12, res=6), device=dev)
+    index.add(d)
+    return d, np.repeat(np.arange(len(families)), per_family), index
+
+
+def _kernel_scores(dist, labels):
+    """The benchmark's SW-kernel k-means purity and nearest-centroid
+    accuracy from an L1 distance matrix."""
+    import numpy as np
+
+    gamma = 1.0 / max(np.median(dist[dist > 0]), 1e-9)
+    kmat = np.exp(-gamma * dist)
+    assign = kernel_kmeans(kmat, n_clusters=3, seed=3)
+    train = (np.arange(len(labels)) % 3) != 2
+    return (assign, cluster_purity(assign, labels),
+            kernel_ncc_accuracy(kmat, labels, train))
+
+
+def phase_fig2(dev, launches, recorder, per_family=24) -> dict:
+    """The three probes of benchmarks/fig2_clustering.py through the port:
+    (1) an ER density sweep of mean clustering vs mean PD_1 count, (2) the
+    TWITTER surrogate, (3) SW-kernel k-means and nearest-centroid over three
+    graph families, which must reach purity and accuracy >= 0.66; probe 3
+    is held against the CPU port (Diagrams bitwise, Gram within
+    tolerance, the same k-means assignment)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.api import topological_signature
+    from repro_torch.core.persistence import diagrams_bitwise_equal
+    from repro_torch.data.graphs import (
+        erdos_renyi, load_dataset, with_degree_filtration)
+    from repro_torch.kernels.ops import clustering_coefficients
+
+    def mean_cc(g):
+        return float(_mean_cc(clustering_coefficients(g.adj, g.mask),
+                              g.mask).mean())
+
+    def run():
+        band = {}
+        for p in (0.05, 0.12, 0.25, 0.45, 0.7, 0.9):
+            # N=14 keeps the whole clique complex inside the caps
+            g = with_degree_filtration(
+                erdos_renyi(31 + int(p * 100), 8, 14, 14, p, device=dev))
+            d = topological_signature(g, dim=1, method="both", **FIG2_ER_CAPS)
+            band[p] = (mean_cc(g), float(d.count(1).float().mean()))
+        g = load_dataset("TWITTER", 31, batch=8, device=dev)
+        d = topological_signature(g, dim=1, method="both",
+                                  **FIG2_TWITTER_CAPS)
+        twitter = (mean_cc(g), float(d.count(1).float().mean()))
+        d, labels, index = _fig2_probe3(dev, per_family)
+        return band, twitter, d, labels, index.gram()
+
+    (band, twitter, d, labels, gram), counts, seconds = _drive(
+        recorder, "fig2", run)
+    assign, purity, acc = _kernel_scores(gram.cpu().numpy(), labels)
+    check(purity >= 0.66 and acc >= 0.66,
+          f"fig2: persistence-kernel clustering degraded: purity {purity}, "
+          f"accuracy {acc} (want >= 0.66)")
+    d_cpu, _, index_cpu = _fig2_probe3("cpu", per_family)
+    check(diagrams_bitwise_equal(d, d_cpu),
+          "fig2: CUDA and CPU probe-3 Diagrams differ")
+    e_cpu = torch.from_numpy(index_cpu._emb)
+    gram_cpu = index_cpu.gram()
+    check(bool(((gram.cpu() - gram_cpu).abs()
+                <= l1_tolerance(e_cpu, e_cpu)).all()),
+          f"fig2: probe-3 Gram outside {L1_TOLERANCE} of the CPU port")
+    check(np.array_equal(assign, _kernel_scores(gram_cpu.numpy(), labels)[0]),
+          "fig2: CUDA and CPU k-means assignments differ")
+    return {"phase": "fig2", "per_family": per_family,
+            "er_mean_clustering": {str(p): v[0] for p, v in band.items()},
+            "er_mean_pd1_features": {str(p): v[1] for p, v in band.items()},
+            "mid_band_mean_pd1": float(np.mean([band[p][1]
+                                                for p in (0.12, 0.25, 0.45)])),
+            "extreme_band_mean_pd1": float(np.mean([band[p][1]
+                                                    for p in (0.05, 0.9)])),
+            "twitter_mean_clustering": twitter[0],
+            "twitter_mean_pd1_features": twitter[1],
+            "graphs": len(labels), "kmeans_purity": purity,
+            "ncc_holdout_accuracy": acc, "seconds": seconds,
+            "launches": _add_counts(launches, counts)}
+
+
+def _profile(name, fn) -> dict:
+    """Device time by kernel over one steady ``fn()`` (torch.profiler, CUDA
+    activity), the device's idle share of the wall time, and the time of
+    the ported kernels.  Runs after the timed runs: the profiler's own cost
+    is in its wall time, not in theirs."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.api import make_topo_plan
 
-    plan = make_topo_plan(dim=1, method="both", repack="on", **caps)
-    plan.execute_info(g)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        plan.execute_info(g)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -434,15 +837,36 @@ def phase_profile(g, caps) -> dict:
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
     ported = ("kcore_peel_kernel", "pack_closed_nbhd_kernel",
-              "domination_tile_kernel", "gf2_reduce_kernel")
+              "domination_tile_kernel", "gf2_reduce_kernel",
+              "pack_rows_kernel", "common_neighbors_tile_kernel",
+              "pairwise_l1_kernel")
     ported_ms = sum(r[0] for r in rows if any(p in r[1] for p in ported))
-    check(busy_ms > 0, "profile: no device time recorded")
-    return {"phase": "profile_n64", "wall_ms": wall_ms,
+    check(busy_ms > 0, f"{name}: no device time recorded")
+    return {"phase": name, "wall_ms": wall_ms,
             "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
             "ported_kernels_ms": ported_ms,
             "top": [{"name": k[:80], "ms": ms, "count": c}
                     for ms, k, c in rows[:15]]}
+
+
+def phase_profile(g, caps) -> dict:
+    """``_profile`` of one steady n64 execution."""
+    from repro_torch.core.api import make_topo_plan
+
+    plan = make_topo_plan(dim=1, method="both", repack="on", **caps)
+    return _profile("profile_n64", lambda: plan.execute_info(g))
+
+
+def phase_profile_index(index, index_lsh, dq, k) -> dict:
+    """``_profile`` of the index's steady work: the Gram and one batch of
+    queries without and with the LSH stage."""
+    def run():
+        index.gram()
+        index.query(dq, k)
+        index_lsh.query(dq, k)
+
+    return _profile("profile_index_n64", run)
 
 
 def _time_kcore(adj, alive, k, sweeps) -> dict:
@@ -534,8 +958,56 @@ def _time_gf2(blocks, n_rows) -> dict:
             "library_ms": None, "bound_ms": bt, "bound_by": by}
 
 
+def _time_common_neighbors(adj) -> dict:
+    """Kernel, plain version, and one torch.bmm of the bf16 0/1 matrices
+    with the same epilogue (exact while counts stay <= 256, which the run
+    checks); the bound counts one AND, POPC and ADD per nonzero A[u, v] and
+    32-vertex word."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.common_neighbors import common_neighbors_cuda
+
+    b, n, _ = adj.shape
+    want = ref.common_neighbors_ref(adj)
+
+    def library():
+        a = adj.to(torch.bfloat16)
+        return (torch.bmm(a, a) * a).to(torch.int32)
+
+    nonzeros = int(adj.sum())
+    bt, by = bound(5 * adj.numel(), 3.0 * nonzeros * ((n + 31) // 32))
+    return {"name": "common_neighbors", "shape": [b, n, n],
+            "nonzeros": nonzeros,
+            "max_abs_err": max_abs_err([common_neighbors_cuda(adj)], [want]),
+            "ms": cuda_ms(lambda: common_neighbors_cuda(adj)),
+            "plain_ms": cuda_ms(lambda: ref.common_neighbors_ref(adj)),
+            "library_ms": cuda_ms(library),
+            "library_exact": bool(torch.equal(library(), want)),
+            "bound_ms": bt, "bound_by": by}
+
+
+def _time_pairwise_l1(x, y) -> dict:
+    """Kernel, plain version and torch.cdist(p=1); the bound counts two f32
+    instructions (subtract, add with |.|) per (i, j, d)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pairwise_gram import pairwise_l1_cuda
+
+    (m, d), n = x.shape, y.shape[0]
+    err = (pairwise_l1_cuda(x, y) - ref.pairwise_l1_ref(x, y)).abs()
+    bt, by = bound(4.0 * (m * d + n * d + m * n), 2.0 * m * n * d)
+    return {"name": "pairwise_l1", "shape": [m, n, d],
+            "max_abs_err": float(err.max()), "tolerance": L1_TOLERANCE,
+            "within_tolerance": bool((err <= l1_tolerance(x, y)).all()),
+            "ms": cuda_ms(lambda: pairwise_l1_cuda(x, y)),
+            "plain_ms": cuda_ms(lambda: ref.pairwise_l1_ref(x, y), reps=3),
+            "library_ms": cuda_ms(lambda: torch.cdist(x, y, p=1)),
+            "bound_ms": bt, "bound_by": by}
+
+
 TIMERS = {"kcore_peel": _time_kcore, "domination": _time_domination,
-          "gf2_reduce": _time_gf2}
+          "gf2_reduce": _time_gf2, "common_neighbors": _time_common_neighbors,
+          "pairwise_l1": _time_pairwise_l1}
 
 
 def kernel_rows(recorder, phase) -> list[dict]:
@@ -547,7 +1019,8 @@ def kernel_rows(recorder, phase) -> list[dict]:
         if recorded is None:
             continue
         row = timer(*recorded[1])
-        check(row["max_abs_err"] == 0, f"{name} ({phase}): kernel disagrees "
+        row.setdefault("within_tolerance", row["max_abs_err"] == 0)
+        check(row["within_tolerance"], f"{name} ({phase}): kernel disagrees "
                                        "with its plain version")
         rows.append(row)
     return rows
@@ -587,27 +1060,40 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     dev = torch.device("cuda")
-    launches = {"kcore_peel": 0, "domination": 0, "gf2_reduce": 0}
+    launches = {k: 0 for k in REPLACES}
     t_start = time.perf_counter()
     try:
         emit(phase_build())
         emit(phase_kernel_checks(dev))
         n64 = n64_batch(dev)
+        n1024 = n1024_batch(dev)
         recorder = Recorder()
         originals = recorder.install()
         try:
-            emit(phase_signature("signature_n64", n64, N64_CAPS, 64, 256,
-                                 launches, recorder))
+            d64, record = phase_signature("signature_n64", n64, N64_CAPS, 64,
+                                          256, launches, recorder)
+            emit(record)
             emit(phase_signature("signature_n320", n320_batch(dev),
-                                 N320_CAPS, 16, 64, launches, recorder))
-            emit(phase_table1(n1024_batch(dev), launches, recorder))
+                                 N320_CAPS, 16, 64, launches, recorder)[1])
+            emit(phase_table1(n1024, launches, recorder))
+            emit(phase_clustering("clustering_n64", n64, launches, recorder))
+            emit(phase_clustering("clustering_n1024", n1024, launches,
+                                  recorder))
+            emit(phase_clustering_twitter(dev, launches, recorder))
+            record, index_run = phase_index(d64, dev, launches, recorder)
+            emit(record)
+            emit(phase_fig2(dev, launches, recorder))
         finally:
             Recorder.uninstall(originals)
-        rows = contract_rows(kernel_rows(recorder, "signature_n64"), launches)
+        rows = contract_rows(
+            [r for ph in ("signature_n64", "clustering_n64", "index_n64")
+             for r in kernel_rows(recorder, ph)], launches)
         emit({"phase": "kernel_times", "at": {
             ph: kernel_rows(recorder, ph)
-            for ph in ("signature_n320", "table1_n1024")}})
+            for ph in ("signature_n320", "table1_n1024", "clustering_n1024",
+                       "clustering_twitter", "fig2")}})
         emit(phase_profile(n64, N64_CAPS))
+        emit(phase_profile_index(*index_run))
         card = card_line()
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)

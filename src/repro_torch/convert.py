@@ -29,6 +29,17 @@ def graph_batch_to_numpy(g: GraphBatch) -> tuple[np.ndarray, ...]:
     return tuple(t.detach().cpu().numpy() for t in (g.adj, g.mask, g.f))
 
 
+def diagrams_from_numpy(birth, death, dim, valid, device=None) -> Diagrams:
+    """Diagrams from (..., S) float32, float32, int32 and bool arrays
+    (e.g. ``np.asarray`` of a ``repro`` Diagrams' fields)."""
+    dev = resolve_device(device)
+    return Diagrams(
+        birth=torch.from_numpy(np.array(birth, dtype=np.float32)).to(dev),
+        death=torch.from_numpy(np.array(death, dtype=np.float32)).to(dev),
+        dim=torch.from_numpy(np.array(dim, dtype=np.int32)).to(dev),
+        valid=torch.from_numpy(np.array(valid, dtype=bool)).to(dev))
+
+
 def diagrams_arrays(d: Diagrams) -> dict[str, np.ndarray]:
     """{birth, death, dim, valid} as numpy arrays."""
     return {k: getattr(d, k).detach().cpu().numpy()

@@ -162,6 +162,16 @@ class Diagrams:
         death = torch.nan_to_num(self.death, nan=0.0, posinf=cap)
         return torch.where(self.valid, death, 0.0)
 
+    def finite_points(self, cap: float) -> tuple[torch.Tensor, torch.Tensor]:
+        """Sanitized ``(birth, death)``: the masked-arithmetic layout that
+        :mod:`repro_torch.topo.features` and :mod:`repro_torch.metrics`
+        share."""
+        return self.finite_birth(), self.finite_death(cap)
+
+    def to(self, device) -> "Diagrams":
+        return Diagrams(*(getattr(self, k).to(device)
+                          for k in ("birth", "death", "dim", "valid")))
+
 
 def pairs_to_diagrams(fc: FilteredComplex, owner: torch.Tensor,
                       positive: torch.Tensor, max_dim: int,

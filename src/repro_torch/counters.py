@@ -9,7 +9,8 @@ once per round: PrunIT's prune rounds and the reduction fixpoint's sweeps.
 from __future__ import annotations
 
 KERNEL_LAUNCHES: dict[str, int] = {"kcore_peel": 0, "domination": 0,
-                                   "gf2_reduce": 0}
+                                   "gf2_reduce": 0, "common_neighbors": 0,
+                                   "pairwise_l1": 0}
 LOOP_ROUNDS: dict[str, int] = {"prune_rounds": 0, "fixpoint_sweeps": 0}
 
 

@@ -12,9 +12,11 @@ import torch
 
 from repro_torch import counters
 from repro_torch.kernels import ref
+from repro_torch.kernels.common_neighbors import common_neighbors_cuda
 from repro_torch.kernels.domination import domination_cuda
 from repro_torch.kernels.gf2_reduce import MAX_BLOCKS, gf2_reduce_cuda
 from repro_torch.kernels.kcore_peel import kcore_peel_cuda
+from repro_torch.kernels.pairwise_gram import pairwise_l1_cuda
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
@@ -122,3 +124,52 @@ def gf2_reduce(b: torch.Tensor, n_rows: int | None = None):
         raise ValueError(f"gf2_reduce: want (S, W), got {tuple(b.shape)}")
     red, owner, positive = gf2_reduce_batch(b[None], n_rows)
     return red[0], owner[0], positive[0]
+
+
+def common_neighbors(adj: torch.Tensor) -> torch.Tensor:
+    """(B, N, N) int32 common-neighbor counts restricted to edges."""
+    if adj.dim() != 3:
+        raise ValueError(f"common_neighbors: want (B, N, N), got "
+                         f"{tuple(adj.shape)}")
+    b, n, _ = adj.shape
+    _check("common_neighbors adj", adj, torch.bool, (b, n, n), adj.device)
+    if _route(adj.device, "common_neighbors"):
+        out = common_neighbors_cuda(adj)
+        if b and n:
+            counters.KERNEL_LAUNCHES["common_neighbors"] += 1
+        return out
+    return ref.common_neighbors_ref(adj)
+
+
+def clustering_coefficients(adj: torch.Tensor,
+                            mask: torch.Tensor) -> torch.Tensor:
+    """(B, N) f32 local clustering coefficients via common_neighbors.
+
+    The adjacency is restricted to live vertices first, so padding rows
+    (and vertices of degree < 2) give 0, never NaN.
+    """
+    b, n = mask.shape
+    _check("clustering_coefficients mask", mask, torch.bool, (b, n),
+           adj.device)
+    adj = adj & mask[:, None, :] & mask[:, :, None]
+    tri2 = common_neighbors(adj).sum(-1)  # 2 * triangles through u
+    deg = adj.sum(-1).to(torch.float32)
+    denom = deg * (deg - 1.0)
+    cc = torch.where(denom > 0, tri2.to(torch.float32) / denom, 0.0)
+    return torch.where(mask, cc, 0.0)
+
+
+def pairwise_l1(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """(M, D) x (N, D) f32 -> (M, N) pairwise-L1 Gram matrix."""
+    if x.dim() != 2 or y.dim() != 2 or x.shape[1] != y.shape[1]:
+        raise ValueError(f"pairwise_l1: want (M, D) and (N, D), got "
+                         f"{tuple(x.shape)} and {tuple(y.shape)}")
+    (m, d), n = x.shape, y.shape[0]
+    _check("pairwise_l1 x", x, torch.float32, (m, d), x.device)
+    _check("pairwise_l1 y", y, torch.float32, (n, d), x.device)
+    if _route(x.device, "pairwise_l1"):
+        out = pairwise_l1_cuda(x, y)
+        if m and n:
+            counters.KERNEL_LAUNCHES["pairwise_l1"] += 1
+        return out
+    return ref.pairwise_l1_ref(x, y)

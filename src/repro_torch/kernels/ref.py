@@ -42,6 +42,39 @@ def domination_ref(adj: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return (viol == 0) & ~eye & live
 
 
+def common_neighbors_ref(adj: torch.Tensor) -> torch.Tensor:
+    """cn[b, u, v] = |N(u) ∩ N(v)| on edges: ``(A @ A) ⊙ A`` as int32.
+
+    adj (B, N, N) bool -> (B, N, N) int32.  The product is an f32 product of
+    0/1 matrices, exact below 2^24 in full float32 (torch's default for
+    matrix products; TF32 would round it).
+    """
+    a = adj.float()
+    return (torch.bmm(a, a) * a).to(torch.int32)
+
+
+# elements of the (rows, N, D) broadcast that pairwise_l1_ref materializes
+# at a time (256 MiB of float32)
+L1_CHUNK = 1 << 26
+
+
+def pairwise_l1_ref(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """gram[i, j] = sum_d |x[i, d] - y[j, d]|: (M, D) x (N, D) -> (M, N) f32.
+
+    Materializes the broadcast difference ``L1_CHUNK`` elements at a time,
+    so the plain version fits in memory at the index's shapes.
+    """
+    x = x.float()
+    y = y.float()
+    m, d = x.shape
+    n = y.shape[0]
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    rows = max(1, L1_CHUNK // max(n * d, 1))
+    for i in range(0, m, rows):
+        out[i:i + rows] = (x[i:i + rows, None, :] - y[None]).abs().sum(-1)
+    return out
+
+
 def low(cols: torch.Tensor) -> torch.Tensor:
     """(G, W) int32 packed columns -> (G,) int64 highest set row, or -1."""
     w = cols.shape[-1]

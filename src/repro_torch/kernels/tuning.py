@@ -3,11 +3,13 @@
 Keyed like ``repro.kernels.tuning``: a device string
 ``"cuda:<device name>"`` (e.g. ``cuda:NVIDIA H100 80GB HBM3``) selects
 pinned values from this package's own file, ``tuned_tiles.json`` beside
-this module (or ``$REPRO_TORCH_TUNED_TILES``); defaults apply where the file
-is absent or was written for another device.  No pinned file exists yet.
+this module (or ``$REPRO_TORCH_TUNED_TILES``), read once per process;
+defaults apply where the file is absent or was written for another device.
+No pinned file exists yet.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 from pathlib import Path
@@ -20,9 +22,14 @@ TILES_SCHEMA = 1
 DEFAULT_TILES: dict[str, dict] = {
     # threads per CTA cap; a CTA is one graph and uses 32 per mask word
     "kcore_peel": {"max_threads": 1024},
+    # blockDim.y of the tile pass, 8 or 32 (each thread counts 32/rows u)
+    "common_neighbors": {"rows_per_pass": 8},
+    # CTA tile side, 64 or 128 (a 4x4 or 8x8 micro-tile per thread)
+    "pairwise_l1": {"tile": 64},
 }
 
 
+@functools.lru_cache(maxsize=16)
 def device_string(device) -> str:
     """``"cuda:<device name>"`` for a CUDA device, else ``"<type>:<type>"``."""
     device = torch.device(device)
@@ -36,12 +43,21 @@ def tiles_path() -> Path:
     return Path(env) if env else Path(__file__).with_name("tuned_tiles.json")
 
 
+@functools.lru_cache(maxsize=8)
+def _read_tiles_file(path: str):
+    """The parsed pinned-tiles file at ``path``, or None; read once per
+    process, since the wrappers resolve their tiles at every launch and a
+    file lookup can cost more than the launch (about 0.1 ms on the H100
+    machine's file system)."""
+    try:
+        return json.loads(Path(path).read_text())
+    except (OSError, ValueError):
+        return None
+
+
 def tuned_tiles(kernel: str, device) -> dict:
     """Pinned values for ``kernel`` on ``device``, or ``{}``."""
-    try:
-        payload = json.loads(tiles_path().read_text())
-    except (OSError, ValueError):
-        return {}
+    payload = _read_tiles_file(str(tiles_path()))
     if (not isinstance(payload, dict) or payload.get("version") != TILES_SCHEMA
             or payload.get("device") != device_string(device)):
         return {}

@@ -6,16 +6,20 @@ neither), so it also runs without ``tests/conftest.py``:
 
     python -m pytest --noconftest -m requires_cuda tests/test_torch_cuda.py
 
-Tolerance is zero: every output is a bool mask or an integer.
+Tolerance is zero where every output is a bool mask or an integer; the
+pairwise-L1 Gram is held within |Δ| <= 1e-5 * Σ_d(|x_d| + |y_d|) + 1e-6,
+since the kernel sums its D terms in another order than the plain version.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.common_neighbors import common_neighbors_cuda
 from repro_torch.kernels.domination import domination_cuda
 from repro_torch.kernels.gf2_reduce import gf2_reduce_cuda
 from repro_torch.kernels.kcore_peel import kcore_peel_cuda
+from repro_torch.kernels.pairwise_gram import pairwise_l1_cuda
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -104,3 +108,74 @@ def test_wrappers_launch_and_count(cuda):
     ops.gf2_reduce(_blocks(1, 10, 32, seed=6, device=cuda)[0], 32)
     snap = counters.snapshot()
     assert (snap["kcore_peel"], snap["domination"], snap["gf2_reduce"]) == (1, 1, 1)
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 64, 320, 1024, 2048])
+def test_common_neighbors_kernel(cuda, n):
+    adj, _ = _graphs(3, n, min(0.5, 8.0 / n), seed=n, device=cuda)
+    want = ref.common_neighbors_ref(adj)
+    for rows in (8, 32):
+        assert torch.equal(common_neighbors_cuda(adj, rows), want)
+
+
+def test_common_neighbors_kernel_complete_empty_and_no_graphs(cuda):
+    n = 70
+    full = ~torch.eye(n, dtype=torch.bool, device=cuda)
+    adj = torch.stack([full, torch.zeros_like(full)])
+    cn = common_neighbors_cuda(adj)
+    assert bool((cn[0][full] == n - 2).all()) and not bool(cn[1].any())
+    assert not bool(cn[0].diagonal().any())
+    empty = torch.zeros((0, 9, 9), dtype=torch.bool, device=cuda)
+    assert common_neighbors_cuda(empty).shape == (0, 9, 9)
+
+
+def _l1_ok(got, x, y):
+    want = ref.pairwise_l1_ref(x, y)
+    tol = (1e-5 * (x.abs().sum(1)[:, None] + y.abs().sum(1)[None, :])
+           + 1e-6)
+    return bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("m,n,d", [(1, 1, 1), (7, 129, 33), (129, 7, 652),
+                                   (300, 260, 652), (1000, 64, 17)])
+def test_pairwise_l1_kernel(cuda, m, n, d):
+    gen = torch.Generator().manual_seed(m + n + d)
+    x = (torch.rand((m, d), generator=gen) * 64).to(cuda)
+    y = (torch.rand((n, d), generator=gen) * 64).to(cuda)
+    for tile in (64, 128):
+        assert _l1_ok(pairwise_l1_cuda(x, y, tile), x, y)
+        same = pairwise_l1_cuda(x, x, tile)
+        assert _l1_ok(same, x, x) and not bool(same.diagonal().any())
+
+
+def test_clustering_and_index_on_the_card_match_the_cpu(cuda):
+    from repro_torch.core.api import topological_signature
+    from repro_torch.data.graphs import erdos_renyi, with_degree_filtration
+    from repro_torch.index import TopoIndex, TopoIndexConfig
+
+    g = with_degree_filtration(erdos_renyi(3, 24, 20, 18, 0.3, device=cuda))
+    cc = ops.clustering_coefficients(g.adj, g.mask)
+    assert torch.equal(cc.cpu(), ops.clustering_coefficients(g.adj.cpu(),
+                                                             g.mask.cpu()))
+    d = topological_signature(g, dim=1, method="both", edge_cap=96,
+                              tri_cap=160)
+    cfg = TopoIndexConfig(embedding="both", n_points=8, n_dirs=8, res=4)
+    index, index_cpu = TopoIndex(cfg, device=cuda), TopoIndex(cfg,
+                                                              device="cpu")
+    index.add(d)
+    index_cpu.add(d.to("cpu"))
+    assert np.allclose(index._emb, index_cpu._emb, rtol=1e-5, atol=1e-6)
+    e = torch.from_numpy(index_cpu._emb).to(cuda)
+    assert _l1_ok(index.gram(), e, e)
+
+
+def test_new_wrappers_launch_and_count(cuda):
+    from repro_torch import counters
+
+    adj, mask = _graphs(2, 40, 0.2, seed=7, device=cuda)
+    x = torch.rand((5, 12), device=cuda)
+    counters.reset()
+    ops.clustering_coefficients(adj, mask)
+    ops.pairwise_l1(x, x)
+    snap = counters.snapshot()
+    assert (snap["common_neighbors"], snap["pairwise_l1"]) == (1, 1)

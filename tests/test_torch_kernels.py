@@ -1,9 +1,12 @@
 """The port's kernel layer against ``repro``'s kernels and references.
 
 On the CPU the port's wrappers run their plain PyTorch versions; those are
-held here, with zero tolerance (every output is a bool mask or an integer),
-against ``repro.kernels.ref``, ``repro``'s Pallas kernels in interpret mode,
-and ``reduce_packed``.  The hand-written CUDA kernels themselves are held
+held here against ``repro.kernels.ref``, ``repro``'s Pallas kernels in
+interpret mode, and ``reduce_packed``: with zero tolerance where every
+output is a bool mask, an integer or an integer ratio (clustering
+coefficients), and for ``pairwise_l1`` within
+|Δ| <= 1e-5 * Σ_d(|x_d| + |y_d|) + 1e-6, since its float32 sums of D terms
+run in another order (the Pallas kernel sums per 128-wide D tile).  The hand-written CUDA kernels themselves are held
 against the plain versions by ``tests/test_torch_cuda.py`` and by
 ``chip_smoke.py``, on a machine with the card.
 """
@@ -178,3 +181,98 @@ def test_wrappers_check_their_inputs():
         ops.domination(adj.transpose(1, 2), mask)  # not contiguous
     with pytest.raises(ValueError):
         ops.gf2_reduce_batch(torch.zeros((1, 4, 1), dtype=torch.int32), 40)
+
+
+def _raw_graphs(b, n, p, seed):
+    """Symmetric adjacency with edges on padding vertices too: the
+    clustering coefficients must mask before they count."""
+    rng = np.random.default_rng(seed)
+    adj = np.triu(rng.random((b, n, n)) < p, 1)
+    adj = adj | adj.transpose(0, 2, 1)
+    mask = rng.random((b, n)) < 0.8
+    mask[0] = False  # an empty graph
+    return adj, mask
+
+
+@pytest.mark.parametrize("n,tile", [(8, 8), (20, 8), (33, 16), (48, 16)])
+def test_common_neighbors_and_clustering_match_repro(n, tile):
+    adj, mask = _raw_graphs(4, n, 0.35, seed=n + tile)
+    adj_j, mask_j = jnp.asarray(adj), jnp.asarray(mask)
+    before = counters.snapshot()
+    cn = ops.common_neighbors(_cpu(adj)).numpy()
+    np.testing.assert_array_equal(
+        cn, np.asarray(jax.vmap(ref_j.common_neighbors_ref)(adj_j)))
+    np.testing.assert_array_equal(
+        cn, np.asarray(ops_j.common_neighbors(adj_j, tile=tile)))
+    cc = ops.clustering_coefficients(_cpu(adj), _cpu(mask)).numpy()
+    np.testing.assert_array_equal(
+        cc, np.asarray(ops_j.clustering_coefficients(adj_j, mask_j,
+                                                     tile=tile)))
+    assert np.isfinite(cc).all() and (cc[~mask] == 0).all()
+    assert counters.snapshot() == before  # the plain path launches nothing
+
+
+def test_common_neighbors_complete_and_empty_graphs():
+    n = 7
+    full = ~torch.eye(n, dtype=torch.bool)
+    adj = torch.stack([full, torch.zeros_like(full)])
+    cn = ops.common_neighbors(adj)
+    assert (cn[0][full] == n - 2).all() and not cn[0].diagonal().any()
+    assert not cn[1].any()
+    cc = ops.clustering_coefficients(adj, torch.ones((2, n), dtype=torch.bool))
+    assert cc[0].tolist() == [1.0] * n and cc[1].tolist() == [0.0] * n
+    assert ops.common_neighbors(torch.zeros((0, 4, 4), dtype=torch.bool)
+                                ).shape == (0, 4, 4)
+
+
+def _l1_tol(x, y):
+    return (1e-5 * (np.abs(x).sum(1)[:, None] + np.abs(y).sum(1)[None, :])
+            + 1e-6)
+
+
+@pytest.mark.parametrize("m,n,d", [(1, 1, 1), (7, 5, 33), (16, 9, 130),
+                                   (40, 24, 652)])
+def test_pairwise_l1_matches_repro(m, n, d):
+    rng = np.random.default_rng(m * n + d)
+    x = rng.uniform(0, 64, (m, d)).astype(np.float32)
+    y = rng.uniform(0, 64, (n, d)).astype(np.float32)
+    got = ops.pairwise_l1(torch.from_numpy(x), torch.from_numpy(y)).numpy()
+    xj, yj = jnp.asarray(x), jnp.asarray(y)
+    for want in (ref_j.pairwise_l1_ref(xj, yj), ops_j.pairwise_l1(xj, yj)):
+        assert (np.abs(got - np.asarray(want)) <= _l1_tol(x, y)).all()
+    same = ops.pairwise_l1(torch.from_numpy(x), torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(np.diagonal(same), 0.0)
+
+
+def test_pairwise_l1_plain_version_chunks_rows(monkeypatch):
+    """The plain version materializes (rows, N, D) blocks; the block size
+    changes nothing but the peak memory."""
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.normal(size=(13, 70)).astype(np.float32))
+    y = torch.from_numpy(rng.normal(size=(6, 70)).astype(np.float32))
+    whole = ref.pairwise_l1_ref(x, y)
+    for chunk in (1, 70 * 6 * 4):
+        monkeypatch.setattr(ref, "L1_CHUNK", chunk)
+        np.testing.assert_allclose(ref.pairwise_l1_ref(x, y), whole,
+                                   rtol=1e-6)
+    assert ref.pairwise_l1_ref(x[:0], y).shape == (0, 6)
+
+
+def test_new_wrappers_check_their_inputs():
+    adj = torch.zeros((2, 5, 5), dtype=torch.bool)
+    mask = torch.ones((2, 5), dtype=torch.bool)
+    x = torch.zeros((3, 4))
+    with pytest.raises(TypeError):
+        ops.common_neighbors(adj.int())
+    with pytest.raises(ValueError):
+        ops.common_neighbors(adj[0])
+    with pytest.raises(ValueError):
+        ops.common_neighbors(adj.transpose(1, 2))  # not contiguous
+    with pytest.raises(ValueError):
+        ops.clustering_coefficients(adj, mask[:, :4])
+    with pytest.raises(ValueError):
+        ops.pairwise_l1(x, torch.zeros((3, 5)))
+    with pytest.raises(TypeError):
+        ops.pairwise_l1(x.double(), x.double())
+    with pytest.raises(ValueError):
+        ops.pairwise_l1(x.t(), x.t())
