@@ -20,8 +20,8 @@ version on the card, then drives the port's two paths:
 CUDA results are compared with the same functions run on the CPU: bitwise
 where the computation is exact, within a stated tolerance where float sums
 run in another order.  Then each kernel is timed at the largest input each
-phase gave it, and one n64 execution and one index run are profiled for
-device time by kernel.  Each phase prints one JSON line; any failure exits
+phase gave it, and one n64 execution, one n64 clustering call and one
+index run are profiled for device time by kernel.  Each phase prints one JSON line; any failure exits
 non-zero.  The last two lines are the ``kernels`` summary (launches on the
 main path, error against the plain version, times and bounds) after the
 card's name and power limit, and the ``ok`` line.
@@ -255,15 +255,13 @@ def phase_kernel_checks(dev) -> dict:
         record("gf2_reduce", list(big[d].shape),
                max_abs_err(got[d], ref.gf2_reduce_ref(big[d], caps[d])))
 
-    # common_neighbors: ragged N up to 2048, both tile-pass shapes, an empty
-    # batch, and complete (every edge counts N - 2) and empty graphs
+    # common_neighbors: ragged N up to 2048, an empty batch, and complete
+    # (every edge counts N - 2) and empty graphs
     for n in (1, 31, 32, 33, 64, 320, 1024, 2048):
         adj, _ = _random_graphs(3, n, min(0.5, 8.0 / n), seed=n + 1,
                                 device=dev)
-        want = ref.common_neighbors_ref(adj)
-        for rows in (8, 32):
-            record("common_neighbors", [3, n, rows], max_abs_err(
-                [common_neighbors_cuda(adj, rows)], [want]))
+        record("common_neighbors", [3, n], max_abs_err(
+            [common_neighbors_cuda(adj)], [ref.common_neighbors_ref(adj)]))
     for n in (5, 100):
         full = ~torch.eye(n, dtype=torch.bool, device=dev)[None]
         none = torch.zeros_like(full)
@@ -284,19 +282,16 @@ def phase_kernel_checks(dev) -> dict:
                 for m in (1, 7, 129, 4096)}
         for m, x in rows.items():
             for n, y in rows.items():
-                want = ref.pairwise_l1_ref(x, y)
-                for tile in ((64, 128) if m == n else (64,)):
-                    got = pairwise_l1_cuda(x, y, tile)
-                    err = (got - want).abs()
-                    ok = bool((err <= l1_tolerance(x, y)).all())
-                    if m == n:  # x = y: the diagonal is exactly 0
-                        ok = ok and not bool(got.diagonal().any())
-                    cases.append({"kernel": "pairwise_l1",
-                                  "shape": [m, n, d, tile],
-                                  "max_abs_err": float(err.max()),
-                                  "within_tolerance": ok})
-                    check(ok, f"pairwise_l1 {[m, n, d, tile]}: kernel "
-                              f"outside {L1_TOLERANCE} of the plain version")
+                got = pairwise_l1_cuda(x, y)
+                err = (got - ref.pairwise_l1_ref(x, y)).abs()
+                ok = bool((err <= l1_tolerance(x, y)).all())
+                if m == n:  # x = y: the diagonal is exactly 0
+                    ok = ok and not bool(got.diagonal().any())
+                cases.append({"kernel": "pairwise_l1", "shape": [m, n, d],
+                              "max_abs_err": float(err.max()),
+                              "within_tolerance": ok})
+                check(ok, f"pairwise_l1 {[m, n, d]}: kernel outside "
+                          f"{L1_TOLERANCE} of the plain version")
     return {"phase": "kernels_check", "cases": len(cases),
             "mismatches": 0, "l1_tolerance": L1_TOLERANCE, "detail": cases}
 
@@ -808,11 +803,11 @@ def phase_fig2(dev, launches, recorder, per_family=24) -> dict:
             "launches": _add_counts(launches, counts)}
 
 
-def _profile(name, fn) -> dict:
-    """Device time by kernel over one steady ``fn()`` (torch.profiler, CUDA
-    activity), the device's idle share of the wall time, and the time of
-    the ported kernels.  Runs after the timed runs: the profiler's own cost
-    is in its wall time, not in theirs."""
+def _profile(name, fn, reps: int = 1) -> dict:
+    """Device time by kernel over ``reps`` steady ``fn()`` calls
+    (torch.profiler, CUDA activity), the device's idle share of the wall
+    time, and the time of the ported kernels.  Runs after the timed runs:
+    the profiler's own cost is in its wall time, not in theirs."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -822,7 +817,8 @@ def _profile(name, fn) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -842,7 +838,7 @@ def _profile(name, fn) -> dict:
               "pairwise_l1_kernel")
     ported_ms = sum(r[0] for r in rows if any(p in r[1] for p in ported))
     check(busy_ms > 0, f"{name}: no device time recorded")
-    return {"phase": name, "wall_ms": wall_ms,
+    return {"phase": name, "reps": reps, "wall_ms": wall_ms,
             "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
             "ported_kernels_ms": ported_ms,
@@ -856,6 +852,15 @@ def phase_profile(g, caps) -> dict:
 
     plan = make_topo_plan(dim=1, method="both", repack="on", **caps)
     return _profile("profile_n64", lambda: plan.execute_info(g))
+
+
+def phase_profile_clustering(g, reps: int = 20) -> dict:
+    """``_profile`` of ``reps`` steady n64 clustering calls: splits the
+    common-neighbors time into its pack and tile passes."""
+    from repro_torch.kernels.ops import clustering_coefficients
+
+    return _profile("profile_clustering_n64",
+                    lambda: clustering_coefficients(g.adj, g.mask), reps)
 
 
 def phase_profile_index(index, index_lsh, dq, k) -> dict:
@@ -1093,6 +1098,7 @@ def main() -> int:
             for ph in ("signature_n320", "table1_n1024", "clustering_n1024",
                        "clustering_twitter", "fig2")}})
         emit(phase_profile(n64, N64_CAPS))
+        emit(phase_profile_clustering(n64))
         emit(phase_profile_index(*index_run))
         card = card_line()
     except SmokeFailure as e:

@@ -31,6 +31,7 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kTile = 32;
+constexpr int kRows = 8;  // blockDim.y of the tile pass
 
 __global__ void pack_rows_kernel(const uint8_t* __restrict__ adj,
                                  uint32_t* __restrict__ packed,
@@ -47,7 +48,6 @@ __global__ void pack_rows_kernel(const uint8_t* __restrict__ adj,
   }
 }
 
-template <int kRows>
 __global__ void common_neighbors_tile_kernel(const uint32_t* __restrict__ packed,
                                              int32_t* __restrict__ out, int n,
                                              int w_words, int tiles) {
@@ -102,29 +102,14 @@ __global__ void common_neighbors_tile_kernel(const uint32_t* __restrict__ packed
   }
 }
 
-template <int kRows>
-cudaError_t launch_tiles(const uint32_t* packed, int32_t* out, int batch,
-                         int n, int w_words, cudaStream_t s) {
-  const int tiles = (n + kTile - 1) / kTile;
-  const long long n_tiles = (long long)batch * tiles * tiles;
-  common_neighbors_tile_kernel<kRows><<<(unsigned)n_tiles, dim3(kTile, kRows),
-                                        0, s>>>(packed, out, n, w_words,
-                                                tiles);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // adj (B,N,N) bool, out (B,N,N) int32, scratch (B,N,ceil(N/32)) int32 for
-// the packed rows; rows_per_pass (blockDim.y of the tile pass) is 8 or 32.
-// Returns cudaGetLastError() after the two launches, or cudaErrorInvalidValue
-// for another rows_per_pass.
+// the packed rows.  Returns cudaGetLastError() after the two launches.
 extern "C" int common_neighbors_launch(const void* adj, void* out,
                                        void* scratch, int batch, int n,
-                                       int rows_per_pass, void* stream) {
+                                       void* stream) {
   if (batch <= 0 || n <= 0) return 0;
-  if (rows_per_pass != 8 && rows_per_pass != 32)
-    return (int)cudaErrorInvalidValue;
   const int w_words = (n + 31) / 32;
   const long long rows = (long long)batch * n;
   const int warps = 8;
@@ -134,9 +119,10 @@ extern "C" int common_neighbors_launch(const void* adj, void* out,
                           w_words);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const uint32_t* packed = (const uint32_t*)scratch;
-  e = rows_per_pass == 8
-          ? launch_tiles<8>(packed, (int32_t*)out, batch, n, w_words, s)
-          : launch_tiles<32>(packed, (int32_t*)out, batch, n, w_words, s);
-  return (int)e;
+  const int tiles = (n + kTile - 1) / kTile;
+  const long long n_tiles = (long long)batch * tiles * tiles;
+  common_neighbors_tile_kernel<<<(unsigned)n_tiles, dim3(kTile, kRows), 0,
+                                 s>>>((const uint32_t*)scratch, (int32_t*)out,
+                                      n, w_words, tiles);
+  return (int)cudaGetLastError();
 }

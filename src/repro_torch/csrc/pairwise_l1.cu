@@ -15,18 +15,17 @@
 //   instructions against 26 us of bytes).
 //
 // Design: SGEMM-style register blocking.  A CTA of 256 threads owns a
-//   (16*TM) x (16*TM) output tile; each thread holds a TM x TM micro-tile
+//   64 x 64 output tile; each thread holds a 4 x 4 micro-tile
 //   of accumulators, strided by 16 rows and 16 columns so that the 16
 //   threads of a half-warp read 16 consecutive shared-memory words and
 //   write 16 consecutive output floats.  D is walked in chunks of 16: each
 //   chunk of x and y rows is staged transposed in shared memory
-//   ([d][row], padded by one word), so one shared load feeds TM
+//   ([d][row], padded by one word), so one shared load feeds 4
 //   instructions' worth of operands.  Each chunk is summed into a partial
 //   micro-tile first and then added to the accumulators, which keeps the
 //   rounding error of a D = 652 sum near that of 16 + 41 additions rather
 //   than 652.  Rows past M or N and columns past D load as 0 (|0 - 0| adds
-//   nothing), so the host pads nothing.  TM is 4 (64 x 64 tiles) or 8
-//   (128 x 128 tiles).
+//   nothing), so the host pads nothing.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -35,12 +34,12 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kSide = 16;  // threads along each side of the CTA
 constexpr int kChunk = 16;  // D values staged per step
+constexpr int TM = 4;  // micro-tile side
+constexpr int kTile = kSide * TM;  // CTA tile side, 64
 
-template <int TM>
 __global__ void __launch_bounds__(kThreads)
 pairwise_l1_kernel(const float* __restrict__ x, const float* __restrict__ y,
                    float* __restrict__ out, int m, int n, int d) {
-  constexpr int kTile = kSide * TM;
   __shared__ float xs[kChunk][kTile + 1];
   __shared__ float ys[kChunk][kTile + 1];
   const int tx = threadIdx.x % kSide;
@@ -100,31 +99,16 @@ pairwise_l1_kernel(const float* __restrict__ x, const float* __restrict__ y,
   }
 }
 
-template <int TM>
-cudaError_t launch(const float* x, const float* y, float* out, int m, int n,
-                   int d, cudaStream_t s) {
-  constexpr int kTile = kSide * TM;
-  const dim3 grid((n + kTile - 1) / kTile, (m + kTile - 1) / kTile);
-  if (grid.y > 65535) return cudaErrorInvalidConfiguration;
-  pairwise_l1_kernel<TM><<<grid, kThreads, 0, s>>>(x, y, out, m, n, d);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
-// x (M,D) f32, y (N,D) f32, out (M,N) f32, all contiguous; tile is the CTA
-// tile side, 64 or 128.  Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for another tile.
+// x (M,D) f32, y (N,D) f32, out (M,N) f32, all contiguous.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int pairwise_l1_launch(const void* x, const void* y, void* out,
-                                  int m, int n, int d, int tile,
-                                  void* stream) {
+                                  int m, int n, int d, void* stream) {
   if (m <= 0 || n <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (tile == 64)
-    return (int)launch<4>((const float*)x, (const float*)y, (float*)out, m, n,
-                          d, s);
-  if (tile == 128)
-    return (int)launch<8>((const float*)x, (const float*)y, (float*)out, m, n,
-                          d, s);
-  return (int)cudaErrorInvalidValue;
+  const dim3 grid((n + kTile - 1) / kTile, (m + kTile - 1) / kTile);
+  if (grid.y > 65535) return (int)cudaErrorInvalidConfiguration;
+  pairwise_l1_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)y, (float*)out, m, n, d);
+  return (int)cudaGetLastError();
 }

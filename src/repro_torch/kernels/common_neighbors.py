@@ -11,18 +11,16 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, tuning
+from repro_torch.kernels import _build
 from repro_torch.kernels.ref import common_neighbors_ref as reference
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
 
-def common_neighbors_cuda(adj: torch.Tensor,
-                          rows_per_pass: int | None = None) -> torch.Tensor:
+def common_neighbors_cuda(adj: torch.Tensor) -> torch.Tensor:
     """Launch the kernel: cn[b, u, v] = A[u, v] * |N(u) ∩ N(v)|.
 
     adj (B, N, N) bool, contiguous on a CUDA device -> (B, N, N) int32.
-    ``rows_per_pass`` (8 or 32) overrides the tuned value.
     """
     b, n, _ = adj.shape
     out = torch.empty((b, n, n), dtype=torch.int32, device=adj.device)
@@ -30,12 +28,10 @@ def common_neighbors_cuda(adj: torch.Tensor,
         return out
     scratch = torch.empty((b, n, (n + 31) // 32), dtype=torch.int32,
                           device=adj.device)
-    rows = rows_per_pass or tuning.resolve_tiles(
-        "common_neighbors", adj.device)["rows_per_pass"]
     fn = _build.function("common_neighbors", "common_neighbors_launch",
                          _ARGTYPES)
     err = fn(adj.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, n,
-             int(rows), torch.cuda.current_stream(adj.device).cuda_stream)
+             torch.cuda.current_stream(adj.device).cuda_stream)
     if err:
         raise RuntimeError(f"common_neighbors launch failed: CUDA error {err}")
     return out

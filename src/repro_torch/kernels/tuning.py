@@ -22,10 +22,6 @@ TILES_SCHEMA = 1
 DEFAULT_TILES: dict[str, dict] = {
     # threads per CTA cap; a CTA is one graph and uses 32 per mask word
     "kcore_peel": {"max_threads": 1024},
-    # blockDim.y of the tile pass, 8 or 32 (each thread counts 32/rows u)
-    "common_neighbors": {"rows_per_pass": 8},
-    # CTA tile side, 64 or 128 (a 4x4 or 8x8 micro-tile per thread)
-    "pairwise_l1": {"tile": 64},
 }
 
 
@@ -46,9 +42,8 @@ def tiles_path() -> Path:
 @functools.lru_cache(maxsize=8)
 def _read_tiles_file(path: str):
     """The parsed pinned-tiles file at ``path``, or None; read once per
-    process, since the wrappers resolve their tiles at every launch and a
-    file lookup can cost more than the launch (about 0.1 ms on the H100
-    machine's file system)."""
+    process, since ``kcore_peel`` resolves its tiles at every launch and a
+    file lookup can cost as much as the launch itself."""
     try:
         return json.loads(Path(path).read_text())
     except (OSError, ValueError):
