@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the five hand-written kernels from ``src/repro_torch/csrc`` (one
+Builds the seven hand-written kernels from ``src/repro_torch/csrc`` (one
 nvcc per source, in parallel), holds each kernel against its plain PyTorch
-version on the card, then drives the port's two paths:
+version on the card, then drives the port's three paths:
 
 * reduce -> repack -> persist through ``make_topo_plan`` at three sizes: the
   n64 serve rung (4096 graphs), the DD rung of Table 2 (256 graphs of 320
@@ -15,13 +15,21 @@ version on the card, then drives the port's two paths:
   a TopoIndex over the n64 diagrams (embedding, the pairwise-L1 Gram,
   kNN queries without and with the LSH stage, a save/load round trip); and
   the three probes of ``benchmarks/fig2_clustering.py``, whose persistence-
-  kernel clustering must reach purity and accuracy >= 0.66.
+  kernel clustering must reach purity and accuracy >= 0.66;
+* the entropic Sinkhorn-W2 path of the MetricEngine: 2048 row-aligned n64
+  pairs through ``compare(metric="sinkhorn")``, dense and blocked (the
+  ``sinkhorn_lse`` and ``sinkhorn_pair_sum`` kernels); the DD rung's
+  diagrams as 128 pairs on the full tensor (clouds of 3200 slots, blocked);
+  a 64 x 64 ``pairwise`` matrix; and a parity gate of 200 random pairs,
+  each within 5% of the exact W2 of ``metrics/reference.py``, with
+  self-distance exactly 0.
 
 CUDA results are compared with the same functions run on the CPU: bitwise
 where the computation is exact, within a stated tolerance where float sums
 run in another order.  Then each kernel is timed at the largest input each
-phase gave it, and one n64 execution, one n64 clustering call and one
-index run are profiled for device time by kernel.  Each phase prints one JSON line; any failure exits
+phase gave it, and one n64 execution, one n64 clustering call, one
+index run and one full-tensor Sinkhorn call are profiled for device time
+by kernel.  Each phase prints one JSON line; any failure exits
 non-zero.  The last two lines are the ``kernels`` summary (launches on the
 main path, error against the plain version, times and bounds) after the
 card's name and power limit, and the ``ok`` line.
@@ -42,6 +50,8 @@ ROOT = Path(__file__).resolve().parent
 # kernels' integer word ops and non-FMA f32 ops
 HBM_BYTES_PER_S = 3.35e12
 LANE_OPS_PER_S = 33.5e12
+# the multi-function units (ex2, lg2, rcp): 16 per SM per clock on Hopper
+MUFU_OPS_PER_S = 16 * 132 * 1.98e9
 
 REPLACES = {
     "kcore_peel": "src/repro/kernels/kcore_peel.py:42",
@@ -49,10 +59,13 @@ REPLACES = {
     "gf2_reduce": "src/repro/kernels/gf2_reduce.py:136",
     "common_neighbors": "src/repro/kernels/common_neighbors.py:37",
     "pairwise_l1": "src/repro/kernels/pairwise_gram.py:45",
+    "sinkhorn_lse": "src/repro/kernels/sinkhorn_lse.py:97",
+    "sinkhorn_pair_sum": "src/repro/kernels/sinkhorn_lse.py:173",
 }
 # the batched Pallas form, gf2_reduce_batch_pallas, is the same CUDA kernel
 ALSO_REPLACES = {"gf2_reduce": "src/repro/kernels/gf2_reduce.py:167"}
 SOURCE = {k: f"src/repro_torch/csrc/{k}.cu" for k in REPLACES}
+SOURCE["sinkhorn_pair_sum"] = SOURCE["sinkhorn_lse"]  # one source, both
 N64_CAPS = dict(edge_cap=320, tri_cap=512)
 N320_CAPS = dict(edge_cap=1024, tri_cap=256)
 # the caps benchmarks/fig2_clustering.py gives each probe
@@ -60,6 +73,29 @@ FIG2_ER_CAPS = dict(edge_cap=128, tri_cap=512)
 FIG2_TWITTER_CAPS = dict(edge_cap=192, tri_cap=192)
 FIG2_FAMILY_CAPS = dict(edge_cap=160, tri_cap=384)
 L1_TOLERANCE = "1e-5 * sum_d(|x_d| + |y_d|) + 1e-6"
+# Sinkhorn kernels against their plain versions, and sinkhorn_w2 on CUDA
+# against the CPU port: the exponents are the same floats, CUDA's expf/logf
+# and the sums' order differ by ulps, which the eps ladder carries along
+SK_RTOL, SK_ATOL = 1e-4, 1e-5
+SK_TOLERANCE = "rtol 1e-4, atol 1e-5; -inf exactly where the plain one has it"
+# the full-tensor settings of benchmarks/metrics_bench.py
+SK_FULL = dict(metric="sinkhorn", impl="blocked", n_points=None, n_iters=15,
+               n_scales=3)
+# Work that one (row, column) pair of nonzero weight needs: (f32/integer
+# lane instructions, multi-function-unit operations), counted from the
+# instructions nvcc 12.8 emits for sm_90a (cuobjdump -sass) for each step;
+# register moves, shared-memory loads and branches are left out.  The LSE
+# needs each pair once: the cost (2 FADD, 2 FMUL, FADD, FSETP, FSEL) 7, z
+# (the subtraction, the IEEE division 6 + MUFU.RCP, the add) 8 + RCP, the
+# running maximum 1, the shift by it 1, the NaN test 1, expf (5 FFMA/FADD,
+# SHF, FMUL) 7 + MUFU.EX2 and the add 1: 26 + 2.  The kernel does more
+# (its second pass builds the cost and divides again, 41 + 3), which the
+# bound does not count.
+SK_LSE_WORK = (26, 2)
+# the pair sum needs each pair of nonzero weight once: the cost 7, z 11
+# (f + g, la + lb, the subtraction, the division 6 + RCP, the add), expf
+# 7 + EX2, the product and the add ("plan"); the cost and the add ("cost")
+SK_PAIR_WORK = {"plan": (27, 2), "cost": (8, 0)}
 
 
 class SmokeFailure(RuntimeError):
@@ -109,11 +145,32 @@ def l1_tolerance(x, y):
             + 1e-6)
 
 
-def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
-    """Least time in ms the card could take, and what bounds it."""
+def bound(bytes_moved: float, ops: float,
+          mufu_ops: float = 0.0) -> tuple[float, str]:
+    """Least time in ms the card could take, and what bounds it: the bytes,
+    or the lane instructions or multi-function-unit operations, whichever
+    takes longer ("operations" for either of the two)."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / LANE_OPS_PER_S * 1e3
+    t_ops = max(ops / LANE_OPS_PER_S, mufu_ops / MUFU_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sinkhorn_error(got, want, rtol=SK_RTOL,
+                   atol=SK_ATOL) -> tuple[float, bool]:
+    """Largest |got - want| over the finite entries of ``want``, and whether
+    every one is within atol + rtol * |want| with -inf in the same places
+    (compared on the host, so ``got`` and ``want`` may sit on two devices).
+    """
+    import torch
+
+    got, want = got.cpu(), want.cpu()
+    same_inf = torch.equal(torch.isneginf(got), torch.isneginf(want))
+    fin = torch.isfinite(want)
+    err = (got[fin] - want[fin]).abs()
+    if not bool(torch.isfinite(err).all()):
+        return float("inf"), False
+    ok = same_inf and bool((err <= atol + rtol * want[fin].abs()).all())
+    return (float(err.max()) if err.numel() else 0.0), ok
 
 
 # --------------------------------------------------------------- inputs
@@ -194,8 +251,10 @@ def _bit31_blocks(g, s, r, seed, device):
 def phase_kernel_checks(dev) -> dict:
     """Every kernel against its plain version at edge-case shapes: ragged
     N, empty graphs and batches, complete graphs, rows past shared memory,
-    bit-31 lows, a gf2 block far larger than a CTA's shared memory, and
-    Gram shapes that leave ragged tiles, with x = y."""
+    bit-31 lows, a gf2 block far larger than a CTA's shared memory, Gram
+    shapes that leave ragged tiles, with x = y, and Sinkhorn rows with no,
+    one or a few valid columns, M = 1 and ragged column tiles."""
+    import numpy as np
     import torch
     from repro_torch.core.filtration import build_filtered_complex
     from repro_torch.core.persistence import _block_caps, pack_boundary_blocks
@@ -292,8 +351,42 @@ def phase_kernel_checks(dev) -> dict:
                               "within_tolerance": ok})
                 check(ok, f"pairwise_l1 {[m, n, d]}: kernel outside "
                           f"{L1_TOLERANCE} of the plain version")
+
+    # sinkhorn_lse and sinkhorn_pair_sum in both modes; a second launch on
+    # the same inputs must give the same bits
+    from repro_torch.kernels.sinkhorn_lse import (
+        sinkhorn_lse_cuda, sinkhorn_pair_sum_cuda)
+    from repro_torch.metrics.testing import SINKHORN_CASES, sinkhorn_operands
+
+    def sk_record(name, shape, got, again, want):
+        err, ok = sinkhorn_error(got, want)
+        ok = ok and torch.equal(got, again)
+        cases.append({"kernel": name, "shape": shape, "max_abs_err": err,
+                      "within_tolerance": ok})
+        check(ok, f"{name} {shape}: kernel outside {SK_TOLERANCE} of the "
+                  "plain version, or two launches differ")
+
+    for b, m, n, v0 in SINKHORN_CASES:
+        t = sinkhorn_operands(np.random.default_rng(m + n), b, m, n, v0, dev)
+        xp, yp, f, g, la, lb, e_t = (t[k] for k in (
+            "xp", "yp", "f", "g", "log_a", "log_b", "e_t"))
+        got = sinkhorn_lse_cuda(xp, yp, g, lb, e_t)
+        sk_record("sinkhorn_lse", [b, m, n, v0], got,
+                  sinkhorn_lse_cuda(xp, yp, g, lb, e_t),
+                  ref.sinkhorn_lse_ref(xp, yp, g, lb, e_t))
+        check(v0 or bool(torch.isneginf(got[0]).all()),
+              "sinkhorn_lse: a row with no valid column is not -inf")
+        for mode in ("plan", "cost"):
+            args = (xp, yp, f, g, la, lb, e_t, mode)
+            got = sinkhorn_pair_sum_cuda(*args)
+            sk_record("sinkhorn_pair_sum", [b, m, n, v0, mode], got,
+                      sinkhorn_pair_sum_cuda(*args),
+                      ref.sinkhorn_pair_sum_ref(*args))
+            check(v0 or float(got[0]) == 0.0,
+                  "sinkhorn_pair_sum: an item with no valid pair is not 0")
     return {"phase": "kernels_check", "cases": len(cases),
-            "mismatches": 0, "l1_tolerance": L1_TOLERANCE, "detail": cases}
+            "mismatches": 0, "l1_tolerance": L1_TOLERANCE,
+            "sinkhorn_tolerance": SK_TOLERANCE, "detail": cases}
 
 
 class Recorder:
@@ -313,7 +406,12 @@ class Recorder:
                  "gf2_reduce": lambda blocks, *a: sum(b.numel()
                                                       for b in blocks),
                  "common_neighbors": lambda adj, *a: adj.numel(),
-                 "pairwise_l1": lambda x, y, *a: x.shape[0] * y.numel()}
+                 "pairwise_l1": lambda x, y, *a: x.shape[0] * y.numel(),
+                 # B * M * N; the pair sum's "plan" mode ahead of "cost"
+                 "sinkhorn_lse": lambda xp, yp, *a: xp.numel() // 3
+                 * yp.shape[-1],
+                 "sinkhorn_pair_sum": lambda xp, yp, *a: (
+                     xp.numel() // 3 * yp.shape[-1], a[-1] == "plan")}
 
         def wrap(name, fn, size_of):
             def recorded(*args):
@@ -803,6 +901,197 @@ def phase_fig2(dev, launches, recorder, per_family=24) -> dict:
             "launches": _add_counts(launches, counts)}
 
 
+def _rows(d, idx):
+    """The Diagrams rows ``idx`` of ``d``."""
+    return type(d)(*(getattr(d, k)[idx]
+                     for k in ("birth", "death", "dim", "valid")))
+
+
+def _distances_ok(name, w, shape):
+    import torch
+
+    check(tuple(w.shape) == tuple(shape) and bool(torch.isfinite(w).all())
+          and bool((w >= 0).all()),
+          f"{name}: distances not finite and >= 0 of shape {shape}")
+
+
+def phase_sinkhorn_n64(d64, launches, recorder, n_cpu=64,
+                       n_self=256) -> dict:
+    """2048 row-aligned pairs of the n64 diagrams (rows 0::2 against 1::2)
+    through ``compare(metric="sinkhorn")`` at the registry defaults (dense,
+    n_points 32) and again with ``impl="blocked"`` (clouds of 64 slots, one
+    column tile).  Blocked must equal dense within rtol 1e-4; each is held
+    against the CPU port on ``n_cpu`` pairs; self-distance is exactly 0."""
+    from repro_torch.metrics import compare
+
+    d1, d2 = _rows(d64, slice(0, None, 2)), _rows(d64, slice(1, None, 2))
+    pairs = d1.birth.shape[0]
+    out = {"phase": "sinkhorn_n64", "pairs": pairs, "n_points": 32,
+           "mean_pd1_points": float(d64.count(1).float().mean()),
+           "tolerance": SK_TOLERANCE}
+    got = {}
+    for impl in ("dense", "blocked"):
+        def run():
+            return compare(d1, d2, metric="sinkhorn", impl=impl)
+
+        w, counts, first_s = _drive(recorder, "sinkhorn_n64", run)
+        _distances_ok(f"sinkhorn_n64 {impl}", w, (pairs,))
+        got[impl] = w
+        w_cpu = compare(_rows(d1, slice(0, n_cpu)).to("cpu"),
+                        _rows(d2, slice(0, n_cpu)).to("cpu"),
+                        metric="sinkhorn", impl=impl)
+        err, ok = sinkhorn_error(w[:n_cpu], w_cpu)
+        check(ok, f"sinkhorn_n64 {impl}: CUDA and CPU differ beyond "
+                  f"{SK_TOLERANCE} (max {err})")
+        sub = _rows(d1, slice(0, n_self))
+        check(not bool(compare(sub, sub, metric="sinkhorn", impl=impl).any()),
+              f"sinkhorn_n64 {impl}: a self-distance is not 0")
+        ms = _host_ms(run, reps=3)
+        out[impl] = {"first_run_ms": first_s * 1e3, "ms": ms,
+                     "pairs_per_s": pairs / (ms / 1e3),
+                     "cpu_max_abs_err": err, "cpu_pairs": n_cpu,
+                     "self_distance_zero_pairs": n_self,
+                     "mean_distance": float(w.mean()),
+                     "launches": _add_counts(launches, counts)}
+    err, ok = sinkhorn_error(got["blocked"], got["dense"])
+    check(ok, f"sinkhorn_n64: blocked and dense differ beyond rtol 1e-4 "
+              f"(max {err})")
+    out["blocked_vs_dense_max_abs_err"] = err
+    return out
+
+
+def phase_sinkhorn_full_n320(d320, launches, recorder, n_cpu=1,
+                             n_dense=8) -> dict:
+    """The DD rung's 256 diagrams as 128 pairs (rows 0::2 against 1::2) on
+    the full tensor: ``compare(**SK_FULL)``, blocked, clouds of 2S slots.
+    Held against the CPU port on ``n_cpu`` pairs (the plain version's
+    (2S)^2 blocks take seconds per pair there) and against the dense form
+    on ``n_dense`` pairs on the card within repro's full-tensor bound
+    (rtol 1e-3, atol 1e-4).  Returns the record and the pairs."""
+    import torch
+    from repro_torch.metrics import compare
+
+    d1, d2 = _rows(d320, slice(0, None, 2)), _rows(d320, slice(1, None, 2))
+    pairs, s = d1.birth.shape
+    cloud = 2 * s
+
+    def run():
+        return compare(d1, d2, **SK_FULL)
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    w, counts, first_s = _drive(recorder, "sinkhorn_full_n320", run)
+    peak = torch.cuda.max_memory_allocated() - base
+    _distances_ok("sinkhorn_full_n320", w, (pairs,))
+    t0 = time.perf_counter()
+    w_cpu = compare(_rows(d1, slice(0, n_cpu)).to("cpu"),
+                    _rows(d2, slice(0, n_cpu)).to("cpu"), **SK_FULL)
+    cpu_s = time.perf_counter() - t0
+    err, ok = sinkhorn_error(w[:n_cpu], w_cpu)
+    check(ok, f"sinkhorn_full_n320: CUDA and CPU differ beyond "
+              f"{SK_TOLERANCE} (max {err})")
+    dense = compare(_rows(d1, slice(0, n_dense)), _rows(d2, slice(0, n_dense)),
+                    **{**SK_FULL, "impl": "dense"})
+    derr, ok = sinkhorn_error(w[:n_dense], dense, 1e-3, 1e-4)
+    check(ok, f"sinkhorn_full_n320: blocked and dense differ beyond rtol "
+              f"1e-3 (max {derr})")
+    ms = _host_ms(run, reps=1)
+    return {"phase": "sinkhorn_full_n320", "pairs": pairs, "cloud_slots": cloud,
+            "mean_pd1_points": float(d320.count(1).float().mean()),
+            **{k: v for k, v in SK_FULL.items() if k != "metric"},
+            "first_run_ms": first_s * 1e3, "ms": ms,
+            "pairs_per_s": pairs / (ms / 1e3),
+            "blocked_peak_bytes": peak,
+            # what impl="dense" would hold: three (2S)^2 f32 cost matrices
+            # per pair (computed from the shapes, not allocated)
+            "dense_cost_bytes": 3 * cloud ** 2 * 4 * pairs,
+            "cpu_pairs": n_cpu, "cpu_seconds": cpu_s, "cpu_max_abs_err": err,
+            "dense_pairs": n_dense, "dense_max_abs_err": derr,
+            "mean_distance": float(w.mean()),
+            "launches": _add_counts(launches, counts)}, (d1, d2)
+
+
+def phase_sinkhorn_pairwise(d64, launches, recorder, n_cpu_rows=2) -> dict:
+    """``pairwise(d64[:64], d64[64:128], metric="sinkhorn", block_rows=16)``
+    through the engine: a 64 x 64 matrix, four compare calls, held against
+    the CPU port on its first ``n_cpu_rows`` rows."""
+    from repro_torch import counters
+    from repro_torch.metrics import pairwise
+
+    q, r = _rows(d64, slice(0, 64)), _rows(d64, slice(64, 128))
+
+    def run():
+        return pairwise(q, r, metric="sinkhorn", block_rows=16)
+
+    mat, counts, first_s = _drive(recorder, "sinkhorn_pairwise", run)
+    calls = {f"{b}.{e}": c for (b, e), c in counters.METRIC_CALLS.items()}
+    _distances_ok("sinkhorn_pairwise", mat, (64, 64))
+    check(calls == {"sinkhorn.pairwise": 1, "sinkhorn.compare": 4},
+          f"sinkhorn_pairwise: engine calls {calls}")
+    want = pairwise(_rows(q, slice(0, n_cpu_rows)).to("cpu"), r.to("cpu"),
+                    metric="sinkhorn")
+    err, ok = sinkhorn_error(mat[:n_cpu_rows], want)
+    check(ok, f"sinkhorn_pairwise: CUDA and CPU differ beyond {SK_TOLERANCE}"
+              f" (max {err})")
+    ms = _host_ms(run, reps=3)
+    return {"phase": "sinkhorn_pairwise", "shape": [64, 64], "block_rows": 16,
+            "engine_calls": calls, "first_run_ms": first_s * 1e3, "ms": ms,
+            "pairs_per_s": 64 * 64 / (ms / 1e3), "cpu_rows": n_cpu_rows,
+            "cpu_max_abs_err": err,
+            "launches": _add_counts(launches, counts)}
+
+
+def phase_sinkhorn_parity(dev, launches, recorder, n_pairs=200) -> dict:
+    """The correctness gate of benchmarks/metrics_bench.py's parity sweep:
+    200 pairs of ``random_diagram`` from ``default_rng(33)``, each Sinkhorn
+    value (dense and blocked) within 5% of ``wasserstein_exact(q=2)`` (or
+    below 1e-4 where that is 0), the registry's error bound; self-distance
+    exactly 0.0 for both forms."""
+    import numpy as np
+    import torch
+    from repro_torch.metrics import compare
+    from repro_torch.metrics.reference import wasserstein_exact
+    from repro_torch.metrics.testing import diagram_points, random_diagram
+
+    rng = np.random.default_rng(33)
+    pairs = [(random_diagram(rng, essential=int(rng.integers(0, 3)),
+                             device="cpu"), random_diagram(rng, device="cpu"))
+             for _ in range(n_pairs)]
+
+    def stack(ds):
+        return type(ds[0])(*(torch.stack([getattr(d, k) for d in ds])
+                             for k in ("birth", "death", "dim",
+                                       "valid"))).to(dev)
+
+    d1, d2 = stack([a for a, _ in pairs]), stack([b for _, b in pairs])
+    exact = np.array([wasserstein_exact(diagram_points(a, 1, 64.0),
+                                        diagram_points(b, 1, 64.0), q=2.0)
+                      for a, b in pairs])
+    out = {"phase": "sinkhorn_parity", "pairs": n_pairs,
+           "gate": "|w - W2| / W2 <= 0.05 (|w| < 1e-4 where W2 = 0)"}
+    for impl in ("dense", "blocked"):
+        w, counts, _ = _drive(
+            recorder, "sinkhorn_parity",
+            lambda: compare(d1, d2, metric="sinkhorn", k=1, cap=64.0,
+                            impl=impl))
+        w = w.cpu().numpy()
+        zero = exact == 0
+        rel = np.abs(w - exact) / np.where(zero, 1.0, exact)
+        failed = int((np.abs(w[zero]) >= 1e-4).sum()
+                     + (rel[~zero] > 0.05).sum())
+        check(failed == 0, f"sinkhorn_parity {impl}: {failed} of {n_pairs} "
+                           "pairs outside 5% of the exact W2")
+        self_d = compare(d1, d1, metric="sinkhorn", impl=impl)
+        check(not bool(self_d.any()),
+              f"sinkhorn_parity {impl}: a self-distance is not 0.0")
+        out[impl] = {"failed": failed,
+                     "max_rel_err": float(rel[~zero].max()),
+                     "mean_rel_err": float(rel[~zero].mean()),
+                     "self_distance_max": float(self_d.max()),
+                     "launches": _add_counts(launches, counts)}
+    return out
+
+
 def _profile(name, fn, reps: int = 1) -> dict:
     """Device time by kernel over ``reps`` steady ``fn()`` calls
     (torch.profiler, CUDA activity), the device's idle share of the wall
@@ -835,7 +1124,8 @@ def _profile(name, fn, reps: int = 1) -> dict:
     ported = ("kcore_peel_kernel", "pack_closed_nbhd_kernel",
               "domination_tile_kernel", "gf2_reduce_kernel",
               "pack_rows_kernel", "common_neighbors_tile_kernel",
-              "pairwise_l1_kernel")
+              "pairwise_l1_kernel", "sinkhorn_lse_kernel",
+              "sinkhorn_pair_sum_kernel", "sum_partials_kernel")
     ported_ms = sum(r[0] for r in rows if any(p in r[1] for p in ported))
     check(busy_ms > 0, f"{name}: no device time recorded")
     return {"phase": name, "reps": reps, "wall_ms": wall_ms,
@@ -872,6 +1162,13 @@ def phase_profile_index(index, index_lsh, dq, k) -> dict:
         index_lsh.query(dq, k)
 
     return _profile("profile_index_n64", run)
+
+
+def phase_profile_sinkhorn(d1, d2) -> dict:
+    """``_profile`` of one steady ``sinkhorn_full_n320`` call."""
+    from repro_torch.metrics import compare
+
+    return _profile("profile_sinkhorn", lambda: compare(d1, d2, **SK_FULL))
 
 
 def _time_kcore(adj, alive, k, sweeps) -> dict:
@@ -1010,9 +1307,75 @@ def _time_pairwise_l1(x, y) -> dict:
             "bound_ms": bt, "bound_by": by}
 
 
+def _time_sinkhorn_lse(xp, yp, dual, logw, e_t) -> dict:
+    """Kernel, plain version, and torch.logsumexp over the materialized
+    exponents (cost build included).  The bound counts SK_LSE_WORK for every
+    row and column of nonzero weight (the others add nothing), and the bytes
+    the function needs: every row's planes and output, every log weight,
+    and the planes and dual of the columns of nonzero weight."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sinkhorn_lse import sinkhorn_lse_cuda
+
+    (b, _, m), n = xp.shape, yp.shape[-1]
+    err, ok = sinkhorn_error(sinkhorn_lse_cuda(xp, yp, dual, logw, e_t),
+                             ref.sinkhorn_lse_ref(xp, yp, dual, logw, e_t))
+
+    def library():
+        c = ref.sinkhorn_cost(xp, yp)
+        z = logw[:, None, :] + (dual[:, None, :] - c) / e_t[:, :, None]
+        return torch.logsumexp(z, -1)
+
+    cols = int((logw != float("-inf")).sum())
+    visited = m * cols
+    lane, mufu = SK_LSE_WORK
+    bt, by = bound(4.0 * (4 * b * m + b * n + 4 * cols + b),
+                   lane * visited, mufu * visited)
+    return {"name": "sinkhorn_lse", "shape": [b, m, n],
+            "visited_pairs": visited, "max_abs_err": err,
+            "tolerance": SK_TOLERANCE, "within_tolerance": ok,
+            "ms": cuda_ms(lambda: sinkhorn_lse_cuda(xp, yp, dual, logw, e_t)),
+            "plain_ms": cuda_ms(lambda: ref.sinkhorn_lse_ref(
+                xp, yp, dual, logw, e_t), reps=3),
+            "library_ms": cuda_ms(library, reps=3), "bound_ms": bt,
+            "bound_by": by}
+
+
+def _time_sinkhorn_pair_sum(xp, yp, f, g, log_a, log_b, e_t, mode) -> dict:
+    """Kernel (both launches) and plain version; no single PyTorch call
+    computes the masked pair sum.  The bound counts SK_PAIR_WORK[mode] for
+    every pair of nonzero weight, and the bytes the function needs: every
+    log weight, and the planes (and, for "plan", the potential) of the
+    slots of nonzero weight."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sinkhorn_lse import sinkhorn_pair_sum_cuda
+
+    (b, _, m), n = xp.shape, yp.shape[-1]
+    args = (xp, yp, f, g, log_a, log_b, e_t, mode)
+    err, ok = sinkhorn_error(sinkhorn_pair_sum_cuda(*args),
+                             ref.sinkhorn_pair_sum_ref(*args))
+    rows, cols = torch.isfinite(log_a).sum(-1), torch.isfinite(log_b).sum(-1)
+    visited = int((rows * cols).sum())
+    slot_bytes = 16 if mode == "plan" else 12
+    lane, mufu = SK_PAIR_WORK[mode]
+    bt, by = bound(4.0 * b * (m + n + 2)
+                   + slot_bytes * int(rows.sum() + cols.sum()),
+                   lane * visited, mufu * visited)
+    return {"name": "sinkhorn_pair_sum", "shape": [b, m, n], "mode": mode,
+            "visited_pairs": visited, "max_abs_err": err,
+            "tolerance": SK_TOLERANCE, "within_tolerance": ok,
+            "ms": cuda_ms(lambda: sinkhorn_pair_sum_cuda(*args)),
+            "plain_ms": cuda_ms(lambda: ref.sinkhorn_pair_sum_ref(*args),
+                                reps=3),
+            "library_ms": None, "bound_ms": bt, "bound_by": by}
+
+
 TIMERS = {"kcore_peel": _time_kcore, "domination": _time_domination,
           "gf2_reduce": _time_gf2, "common_neighbors": _time_common_neighbors,
-          "pairwise_l1": _time_pairwise_l1}
+          "pairwise_l1": _time_pairwise_l1,
+          "sinkhorn_lse": _time_sinkhorn_lse,
+          "sinkhorn_pair_sum": _time_sinkhorn_pair_sum}
 
 
 def kernel_rows(recorder, phase) -> list[dict]:
@@ -1078,8 +1441,10 @@ def main() -> int:
             d64, record = phase_signature("signature_n64", n64, N64_CAPS, 64,
                                           256, launches, recorder)
             emit(record)
-            emit(phase_signature("signature_n320", n320_batch(dev),
-                                 N320_CAPS, 16, 64, launches, recorder)[1])
+            d320, record = phase_signature("signature_n320", n320_batch(dev),
+                                           N320_CAPS, 16, 64, launches,
+                                           recorder)
+            emit(record)
             emit(phase_table1(n1024, launches, recorder))
             emit(phase_clustering("clustering_n64", n64, launches, recorder))
             emit(phase_clustering("clustering_n1024", n1024, launches,
@@ -1088,18 +1453,27 @@ def main() -> int:
             record, index_run = phase_index(d64, dev, launches, recorder)
             emit(record)
             emit(phase_fig2(dev, launches, recorder))
+            emit(phase_sinkhorn_n64(d64, launches, recorder))
+            record, sk_pairs = phase_sinkhorn_full_n320(d320, launches,
+                                                        recorder)
+            emit(record)
+            emit(phase_sinkhorn_pairwise(d64, launches, recorder))
+            emit(phase_sinkhorn_parity(dev, launches, recorder))
         finally:
             Recorder.uninstall(originals)
         rows = contract_rows(
-            [r for ph in ("signature_n64", "clustering_n64", "index_n64")
+            [r for ph in ("signature_n64", "clustering_n64", "index_n64",
+                          "sinkhorn_full_n320")
              for r in kernel_rows(recorder, ph)], launches)
         emit({"phase": "kernel_times", "at": {
             ph: kernel_rows(recorder, ph)
             for ph in ("signature_n320", "table1_n1024", "clustering_n1024",
-                       "clustering_twitter", "fig2")}})
+                       "clustering_twitter", "fig2", "sinkhorn_n64",
+                       "sinkhorn_parity")}})
         emit(phase_profile(n64, N64_CAPS))
         emit(phase_profile_clustering(n64))
         emit(phase_profile_index(*index_run))
+        emit(phase_profile_sinkhorn(*sk_pairs))
         card = card_line()
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)

@@ -17,6 +17,8 @@ from repro_torch.kernels.domination import domination_cuda
 from repro_torch.kernels.gf2_reduce import MAX_BLOCKS, gf2_reduce_cuda
 from repro_torch.kernels.kcore_peel import kcore_peel_cuda
 from repro_torch.kernels.pairwise_gram import pairwise_l1_cuda
+from repro_torch.kernels.sinkhorn_lse import (
+    sinkhorn_lse_cuda, sinkhorn_pair_sum_cuda)
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
@@ -173,3 +175,60 @@ def pairwise_l1(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
             counters.KERNEL_LAUNCHES["pairwise_l1"] += 1
         return out
     return ref.pairwise_l1_ref(x, y)
+
+
+def _check_planes(name, xp, yp, *, rows, cols, e_t):
+    """Shapes (B, M) and (B, N) of the Sinkhorn kernels' operands."""
+    if xp.dim() != 3 or yp.dim() != 3:
+        raise ValueError(f"{name}: want (B, 3, M) and (B, 3, N) planes, got "
+                         f"{tuple(xp.shape)} and {tuple(yp.shape)}")
+    (b, _, m), n, dev = xp.shape, yp.shape[-1], xp.device
+    _check(f"{name} xp", xp, torch.float32, (b, 3, m), dev)
+    _check(f"{name} yp", yp, torch.float32, (b, 3, n), dev)
+    for i, t in enumerate(rows):
+        _check(f"{name} row operand {i}", t, torch.float32, (b, m), dev)
+    for i, t in enumerate(cols):
+        _check(f"{name} column operand {i}", t, torch.float32, (b, n), dev)
+    _check(f"{name} e_t", e_t, torch.float32, (b, 1), dev)
+    return b, m, n
+
+
+def sinkhorn_lse(xp: torch.Tensor, yp: torch.Tensor, dual: torch.Tensor,
+                 logw: torch.Tensor, e_t: torch.Tensor) -> torch.Tensor:
+    """(B, M) blocked Sinkhorn half-update, the cost built on the fly:
+    ``out[b, i] = LSE_j(logw_j + (dual_j - c_ij) / e_b)``.
+
+    xp (B, 3, M) and yp (B, 3, N) coordinate planes, dual and logw (B, N),
+    e_t (B, 1), all float32 and contiguous.
+    """
+    b, m, n = _check_planes("sinkhorn_lse", xp, yp, rows=(),
+                            cols=(dual, logw), e_t=e_t)
+    if _route(xp.device, "sinkhorn_lse"):
+        out = sinkhorn_lse_cuda(xp, yp, dual, logw, e_t)
+        if b and m:
+            counters.KERNEL_LAUNCHES["sinkhorn_lse"] += 1
+        return out
+    return ref.sinkhorn_lse_ref(xp, yp, dual, logw, e_t)
+
+
+def sinkhorn_pair_sum(xp: torch.Tensor, yp: torch.Tensor, f: torch.Tensor,
+                      g: torch.Tensor, log_a: torch.Tensor,
+                      log_b: torch.Tensor, e_t: torch.Tensor,
+                      mode: str = "plan") -> torch.Tensor:
+    """(B,) masked pair sum over the cost built on the fly: <P, C>
+    (``mode="plan"``) or the sum of c (``mode="cost"``) over the pairs whose
+    log weights are both finite.
+
+    f and log_a (B, M), g and log_b (B, N), e_t (B, 1); ``f``, ``g`` and
+    ``e_t`` are not read in ``"cost"`` mode but are checked all the same.
+    """
+    if mode not in ("plan", "cost"):
+        raise ValueError(f"unknown pair-sum mode {mode!r}")
+    b, m, n = _check_planes("sinkhorn_pair_sum", xp, yp, rows=(f, log_a),
+                            cols=(g, log_b), e_t=e_t)
+    if _route(xp.device, "sinkhorn_pair_sum"):
+        out = sinkhorn_pair_sum_cuda(xp, yp, f, g, log_a, log_b, e_t, mode)
+        if b and m:  # with no rows the sums are zeroed, nothing launched
+            counters.KERNEL_LAUNCHES["sinkhorn_pair_sum"] += 1
+        return out
+    return ref.sinkhorn_pair_sum_ref(xp, yp, f, g, log_a, log_b, e_t, mode)

@@ -139,3 +139,81 @@ def gf2_reduce_ref(b: torch.Tensor, n_rows: int | None = None):
     """
     m, owner, positive, _ = gf2_reduce_counted(b, n_rows)
     return m, owner, positive
+
+
+# ------------------------------------------------------------ Sinkhorn
+# Cloud planes are (B, 3, M) float32: plane 0 birth, plane 1 death, plane 2
+# the diagonal-slot flag (repro's (B, 8, M) layout without its five zero
+# planes of TPU sublane padding).  Validity is carried by the -inf slots of
+# the log weights.
+
+# elements of the (rows, M, N) cost and exponent blocks that the Sinkhorn
+# plain versions materialize at a time (256 MiB of float32 each)
+SINKHORN_CHUNK = 1 << 26
+
+
+def sinkhorn_cost(xp: torch.Tensor, yp: torch.Tensor) -> torch.Tensor:
+    """(B, M, N) squared-Euclidean cost between two plane sets, with
+    diagonal<->diagonal pairs free: ``(xb - yb)^2 + (xd - yd)^2``."""
+    xb, xd, xf = xp[:, 0], xp[:, 1], xp[:, 2]
+    yb, yd, yf = yp[:, 0], yp[:, 1], yp[:, 2]
+    c = (xb[:, :, None] - yb[:, None, :]).square_()
+    c += (xd[:, :, None] - yd[:, None, :]).square_()
+    return c.masked_fill_((xf[:, :, None] > 0) & (yf[:, None, :] > 0), 0.0)
+
+
+def _batch_rows(xp: torch.Tensor, yp: torch.Tensor) -> int:
+    m, n = xp.shape[-1], yp.shape[-1]
+    return max(1, SINKHORN_CHUNK // max(m * n, 1))
+
+
+def sinkhorn_lse_ref(xp: torch.Tensor, yp: torch.Tensor, dual: torch.Tensor,
+                     logw: torch.Tensor, e_t: torch.Tensor) -> torch.Tensor:
+    """(B, M) rows ``LSE_j(logw_j + (dual_j - c_ij) / e)``.
+
+    xp (B, 3, M), yp (B, 3, N), dual and logw (B, N), e_t (B, 1), all
+    float32.  A row whose every ``logw_j`` is -inf gives -inf.  The cost
+    and exponents are materialized ``SINKHORN_CHUNK`` elements at a time
+    and updated in place (``dual - c`` as ``-c + dual``, the same float).
+    """
+    b, m = xp.shape[0], xp.shape[-1]
+    out = torch.empty((b, m), dtype=torch.float32, device=xp.device)
+    rows = _batch_rows(xp, yp)
+    for i in range(0, b, rows):
+        s = slice(i, i + rows)
+        z = sinkhorn_cost(xp[s], yp[s]).neg_().add_(dual[s, None, :])
+        z = z.div_(e_t[s, :, None]).add_(logw[s, None, :])
+        mx = z.amax(-1, keepdim=True)
+        tot = z.sub_(mx).exp_().sum(-1)
+        mx = mx.squeeze(-1)
+        out[s] = torch.where(torch.isfinite(mx), mx + torch.log(tot),
+                             float("-inf"))
+    return out
+
+
+def sinkhorn_pair_sum_ref(xp: torch.Tensor, yp: torch.Tensor, f: torch.Tensor,
+                          g: torch.Tensor, log_a: torch.Tensor,
+                          log_b: torch.Tensor, e_t: torch.Tensor,
+                          mode: str = "plan") -> torch.Tensor:
+    """(B,) masked sum over the pairs whose log weights are both finite.
+
+    ``mode="plan"``: ``exp(log_a_i + log_b_j + (f_i + g_j - c_ij) / e) *
+    c_ij`` (the transport cost <P, C>); ``mode="cost"``: ``c_ij`` (``f``,
+    ``g`` and ``e_t`` unused).  xp (B, 3, M), yp (B, 3, N); f and log_a
+    (B, M); g and log_b (B, N); e_t (B, 1).
+    """
+    if mode not in ("plan", "cost"):
+        raise ValueError(f"unknown pair-sum mode {mode!r}")
+    b = xp.shape[0]
+    out = torch.empty((b,), dtype=torch.float32, device=xp.device)
+    rows = _batch_rows(xp, yp)
+    for i in range(0, b, rows):
+        s = slice(i, i + rows)
+        c = sinkhorn_cost(xp[s], yp[s])
+        la, lb = log_a[s, :, None], log_b[s, None, :]
+        unpaired = ~(torch.isfinite(la) & torch.isfinite(lb))
+        if mode == "plan":
+            z = (f[s, :, None] + g[s, None, :]).sub_(c).div_(e_t[s, :, None])
+            c = z.add_(la + lb).exp_().mul_(c)
+        out[s] = c.masked_fill_(unpaired, 0.0).sum((-1, -2))
+    return out

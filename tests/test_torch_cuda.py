@@ -9,6 +9,11 @@ neither), so it also runs without ``tests/conftest.py``:
 Tolerance is zero where every output is a bool mask or an integer; the
 pairwise-L1 Gram is held within |Δ| <= 1e-5 * Σ_d(|x_d| + |y_d|) + 1e-6,
 since the kernel sums its D terms in another order than the plain version.
+The Sinkhorn kernels and ``sinkhorn_w2`` are held at rtol 1e-4, atol 1e-5:
+the kernel's exponents are bitwise the plain version's, but CUDA's
+``expf``/``logf`` and the sums' order differ by ulps, which the eps ladder
+carries through its updates; -inf must sit exactly where the plain version
+has it, and two launches on the same inputs must agree bitwise.
 """
 import numpy as np
 import pytest
@@ -20,6 +25,9 @@ from repro_torch.kernels.domination import domination_cuda
 from repro_torch.kernels.gf2_reduce import gf2_reduce_cuda
 from repro_torch.kernels.kcore_peel import kcore_peel_cuda
 from repro_torch.kernels.pairwise_gram import pairwise_l1_cuda
+from repro_torch.kernels.sinkhorn_lse import (
+    sinkhorn_lse_cuda, sinkhorn_pair_sum_cuda)
+from repro_torch.metrics.testing import SINKHORN_CASES, sinkhorn_operands
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -177,3 +185,84 @@ def test_new_wrappers_launch_and_count(cuda):
     ops.pairwise_l1(x, x)
     snap = counters.snapshot()
     assert (snap["common_neighbors"], snap["pairwise_l1"]) == (1, 1)
+
+
+def _close_with_inf(got, want):
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    fin = torch.isfinite(want)
+    assert bool(torch.isfinite(got[fin]).all())
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,m,n,v0", SINKHORN_CASES)
+def test_sinkhorn_lse_kernel(cuda, b, m, n, v0):
+    t = sinkhorn_operands(np.random.default_rng(m + n), b, m, n, v0, cuda)
+    args = (t["xp"], t["yp"], t["g"], t["log_b"], t["e_t"])
+    got = sinkhorn_lse_cuda(*args)
+    _close_with_inf(got, ref.sinkhorn_lse_ref(*args))
+    assert torch.equal(sinkhorn_lse_cuda(*args), got)  # bitwise repeatable
+    if v0 == 0:
+        assert bool(torch.isneginf(got[0]).all())
+
+
+@pytest.mark.parametrize("mode", ["plan", "cost"])
+@pytest.mark.parametrize("b,m,n,v0", SINKHORN_CASES)
+def test_sinkhorn_pair_sum_kernel(cuda, b, m, n, v0, mode):
+    t = sinkhorn_operands(np.random.default_rng(m * n), b, m, n, v0, cuda)
+    args = (t["xp"], t["yp"], t["f"], t["g"], t["log_a"], t["log_b"],
+            t["e_t"])
+    got = sinkhorn_pair_sum_cuda(*args, mode)
+    torch.testing.assert_close(got, ref.sinkhorn_pair_sum_ref(*args, mode),
+                               rtol=1e-4, atol=1e-5)
+    assert torch.equal(sinkhorn_pair_sum_cuda(*args, mode), got)
+    if v0 == 0:
+        assert float(got[0]) == 0.0
+
+
+def _random_pairs(seed, b, s, device):
+    from repro_torch.core.persistence import Diagrams
+    from repro_torch.metrics.testing import random_diagram
+
+    rng = np.random.default_rng(seed)
+    rows = [random_diagram(rng, s=s, essential=int(rng.integers(0, 3)),
+                           device="cpu") for _ in range(2 * b)]
+    stack = lambda ds: Diagrams(*(torch.stack([getattr(d, k) for d in ds])
+                                  for k in ("birth", "death", "dim", "valid")
+                                  )).to(device)
+    return stack(rows[0::2]), stack(rows[1::2])
+
+
+@pytest.mark.parametrize("n_points", [32, None], ids=["n32", "full"])
+def test_sinkhorn_w2_blocked_on_the_card_matches_the_cpu(cuda, n_points):
+    from repro_torch.metrics import sinkhorn_w2
+
+    d1, d2 = _random_pairs(41, 8, 80, cuda)
+    kw = dict(impl="blocked", n_points=n_points, n_iters=15, n_scales=3)
+    got = sinkhorn_w2(d1, d2, **kw)
+    want = sinkhorn_w2(d1.to("cpu"), d2.to("cpu"), **kw)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("impl", ["dense", "blocked"])
+def test_sinkhorn_self_distance_is_zero_on_the_card(cuda, impl):
+    from repro_torch.metrics import compare
+
+    d1, _ = _random_pairs(42, 16, 40, cuda)
+    got = compare(d1, d1, metric="sinkhorn", impl=impl)
+    assert torch.equal(got, torch.zeros_like(got))
+
+
+def test_sinkhorn_wrappers_launch_and_count(cuda):
+    from repro_torch import counters
+    from repro_torch.metrics import sinkhorn_w2
+
+    d1, d2 = _random_pairs(43, 4, 12, cuda)
+    counters.reset()
+    sinkhorn_w2(d1, d2, impl="blocked", n_iters=2, n_scales=2)
+    snap = counters.snapshot()
+    # 2 stages x 2 iterations x 2 half-updates x 3 OT terms; the eps scale
+    # and the three plan costs
+    assert (snap["sinkhorn_lse"], snap["sinkhorn_pair_sum"]) == (24, 4)
+    counters.reset()
+    sinkhorn_w2(d1, d2, impl="dense", n_iters=2, n_scales=2)
+    assert counters.snapshot()["sinkhorn_lse"] == 0
