@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the seven hand-written kernels from ``src/repro_torch/csrc`` (one
-nvcc per source, in parallel), holds each kernel against its plain PyTorch
-version on the card, then drives the port's three paths:
+Builds the nine hand-written kernels from the seven sources in
+``src/repro_torch/csrc`` (one nvcc per source, in parallel), holds each
+kernel against its plain PyTorch version on the card, then drives the
+port's four paths:
 
 * reduce -> repack -> persist through ``make_topo_plan`` at three sizes: the
   n64 serve rung (4096 graphs), the DD rung of Table 2 (256 graphs of 320
@@ -22,13 +23,21 @@ version on the card, then drives the port's three paths:
   diagrams as 128 pairs on the full tensor (clouds of 3200 slots, blocked);
   a 64 x 64 ``pairwise`` matrix; and a parity gate of 200 random pairs,
   each within 5% of the exact W2 of ``metrics/reference.py``, with
-  self-distance exactly 0.
+  self-distance exactly 0;
+* the exact half of the MetricEngine (the ``auction_lap`` and
+  ``auction_lap_collapsed`` kernels): the 2048 n64 pairs through
+  ``compare(metric="exact_w")`` collapsed and expanded, ``compare_info``
+  cold and warm, and ``bottleneck_approx``; the DD rung's diagrams as 128
+  pairs at ``n_points=64`` in both layouts, against the Hungarian oracle
+  where the compaction is exact; a 64 x 64 ``pairwise``; and
+  ``metrics_bench``'s auction parity gate of 200 random pairs.
 
 CUDA results are compared with the same functions run on the CPU: bitwise
 where the computation is exact, within a stated tolerance where float sums
 run in another order.  Then each kernel is timed at the largest input each
 phase gave it, and one n64 execution, one n64 clustering call, one
-index run and one full-tensor Sinkhorn call are profiled for device time
+index run, one full-tensor Sinkhorn call and one DD-rung exact_w call are
+profiled for device time
 by kernel.  Each phase prints one JSON line; any failure exits
 non-zero.  The last two lines are the ``kernels`` summary (launches on the
 main path, error against the plain version, times and bounds) after the
@@ -61,11 +70,14 @@ REPLACES = {
     "pairwise_l1": "src/repro/kernels/pairwise_gram.py:45",
     "sinkhorn_lse": "src/repro/kernels/sinkhorn_lse.py:97",
     "sinkhorn_pair_sum": "src/repro/kernels/sinkhorn_lse.py:173",
+    "auction_lap": "src/repro/kernels/auction_lap.py:479",
+    "auction_lap_collapsed": "src/repro/kernels/auction_lap.py:548",
 }
 # the batched Pallas form, gf2_reduce_batch_pallas, is the same CUDA kernel
 ALSO_REPLACES = {"gf2_reduce": "src/repro/kernels/gf2_reduce.py:167"}
 SOURCE = {k: f"src/repro_torch/csrc/{k}.cu" for k in REPLACES}
 SOURCE["sinkhorn_pair_sum"] = SOURCE["sinkhorn_lse"]  # one source, both
+SOURCE["auction_lap_collapsed"] = SOURCE["auction_lap"]
 N64_CAPS = dict(edge_cap=320, tri_cap=512)
 N320_CAPS = dict(edge_cap=1024, tri_cap=256)
 # the caps benchmarks/fig2_clustering.py gives each probe
@@ -96,6 +108,15 @@ SK_LSE_WORK = (26, 2)
 # (f + g, la + lb, the subtraction, the division 6 + RCP, the add), expf
 # 7 + EX2, the product and the add ("plan"); the cost and the add ("cost")
 SK_PAIR_WORK = {"plan": (27, 2), "cost": (8, 0)}
+# exact_w on CUDA against the CPU port: converged flags and rounds bitwise;
+# the distances within rtol 1e-6, atol 1e-5 (the expanded totals are f32
+# sums in another order, the collapsed W^q float64 sums in another order
+# rounded once, and a square root of a total near 0 magnifies an ulp)
+EX_RTOL, EX_ATOL = 1e-6, 1e-5
+EX_TOLERANCE = "rtol 1e-6, atol 1e-5; converged and rounds bitwise"
+# lane operations of one row (or column) scan of an M-wide auction: M
+# subtractions and two max passes (the best and the second best)
+AUCTION_SCAN_OPS = 3
 
 
 class SmokeFailure(RuntimeError):
@@ -384,9 +405,36 @@ def phase_kernel_checks(dev) -> dict:
                       ref.sinkhorn_pair_sum_ref(*args))
             check(v0 or float(got[0]) == 0.0,
                   "sinkhorn_pair_sum: an item with no valid pair is not 0")
+
+    # the auction kernels over the shared case list: everything bitwise but
+    # the totals
+    from repro_torch.metrics.testing import (
+        AUCTION_CASES, AUCTION_TOTAL_TOLERANCE, auction_agreement,
+        auction_case, solve_auction_case)
+
+    for case in AUCTION_CASES:
+        kind, b, m, opts, solver = case
+        name = "auction_lap" if kind == "expanded" else "auction_lap_collapsed"
+        got = solve_auction_case(case, dev, kernel=True)
+        want = solve_auction_case(case, dev, kernel=False)
+        t, _ = auction_case(case, dev)
+        differ, err, ok = auction_agreement(got, want,
+                                            t.get("cost", t.get("cbar")))
+        cases.append({"kernel": name, "shape": [kind, b, m, opts, solver],
+                      "outputs_differing": differ, "max_abs_err": err,
+                      "within_tolerance": differ == 0 and ok,
+                      "converged": int(want[2].sum()),
+                      "rounds_max": int(want[3].max())})
+        check(differ == 0 and ok, f"{name} {cases[-1]['shape']}: {differ} "
+                                  f"outputs differ from the plain version, "
+                                  f"or a total is outside "
+                                  f"{AUCTION_TOTAL_TOLERANCE}")
     return {"phase": "kernels_check", "cases": len(cases),
             "mismatches": 0, "l1_tolerance": L1_TOLERANCE,
-            "sinkhorn_tolerance": SK_TOLERANCE, "detail": cases}
+            "sinkhorn_tolerance": SK_TOLERANCE,
+            "auction_tolerance": "bitwise but the totals: "
+                                 + AUCTION_TOTAL_TOLERANCE,
+            "detail": cases}
 
 
 class Recorder:
@@ -411,7 +459,9 @@ class Recorder:
                  "sinkhorn_lse": lambda xp, yp, *a: xp.numel() // 3
                  * yp.shape[-1],
                  "sinkhorn_pair_sum": lambda xp, yp, *a: (
-                     xp.numel() // 3 * yp.shape[-1], a[-1] == "plan")}
+                     xp.numel() // 3 * yp.shape[-1], a[-1] == "plan"),
+                 "auction_lap": lambda cost, *a: cost.numel(),
+                 "auction_lap_collapsed": lambda cbar, *a: cbar.numel()}
 
         def wrap(name, fn, size_of):
             def recorded(*args):
@@ -1092,6 +1142,313 @@ def phase_sinkhorn_parity(dev, launches, recorder, n_pairs=200) -> dict:
     return out
 
 
+def _exact_vs_cpu(name, d1, d2, n, got, **kw) -> float:
+    """``compare_info(metric="exact_w", **kw)`` of the first ``n`` pairs on
+    the CPU port against ``got``, the CUDA run's ``(w, converged, rounds,
+    ...)``: the distances within EX_TOLERANCE, the rest bitwise.  Returns
+    the largest |difference| of the distances."""
+    import torch
+    from repro_torch.metrics import compare_info
+
+    want = compare_info(_rows(d1, slice(0, n)).to("cpu"),
+                        _rows(d2, slice(0, n)).to("cpu"), metric="exact_w",
+                        **kw)
+    w = got[0][:n].cpu()
+    ok = (torch.allclose(w, want[0], rtol=EX_RTOL, atol=EX_ATOL)
+          and all(torch.equal(g[:n].cpu(), x)
+                  for g, x in zip(got[1:3], want[1:3])))
+    check(ok, f"{name}: CUDA and CPU differ beyond {EX_TOLERANCE}")
+    return float((w - want[0]).abs().max()) if n else 0.0
+
+
+def _rounds(rounds) -> dict:
+    return {"rounds_mean": float(rounds.float().mean()),
+            "rounds_max": int(rounds.max())}
+
+
+def phase_exact_n64(d64, launches, recorder, n_cpu=64, n_cpu_off=16,
+                    n_self=256) -> dict:
+    """2048 row-aligned n64 pairs (rows 0::2 against 1::2) through the exact
+    backends: ``compare(metric="exact_w")`` at the registry defaults
+    (collapsed, n_points 16), ``compare_info`` with ``collapse="off"``,
+    ``compare_info`` cold and then warm from the prices it returned, and
+    ``bottleneck_approx``.  Each is held against the CPU port on its first
+    pairs (``n_cpu_off`` for the expanded form, whose plain solver runs
+    ~1,400 rounds a pair); every pair converges in both layouts, the two
+    layouts agree within 1e-4, the warm start keeps the distances (1e-5)
+    and saves rounds, and the self-distance is exactly 0."""
+    import torch
+    from repro_torch.metrics import compare, compare_info
+
+    d1, d2 = _rows(d64, slice(0, None, 2)), _rows(d64, slice(1, None, 2))
+    pairs = d1.birth.shape[0]
+    out = {"phase": "exact_n64", "pairs": pairs, "n_points": 16,
+           "mean_pd1_points": float(d64.count(1).float().mean()),
+           "tolerance": EX_TOLERANCE}
+    runs = {
+        "on": lambda: compare(d1, d2, metric="exact_w"),
+        "off": lambda: compare_info(d1, d2, metric="exact_w",
+                                    collapse="off"),
+        "cold": lambda: compare_info(d1, d2, metric="exact_w"),
+        "bottleneck": lambda: compare(d1, d2, metric="bottleneck_approx"),
+    }
+    got = {}
+    for key, run in runs.items():
+        res, counts, first_s = _drive(recorder, "exact_n64", run)
+        got[key] = res
+        w = res[0] if isinstance(res, tuple) else res
+        _distances_ok(f"exact_n64 {key}", w, (pairs,))
+        ms = _host_ms(run, reps=3)
+        out[key] = {"first_run_ms": first_s * 1e3, "ms": ms,
+                    "pairs_per_s": pairs / (ms / 1e3),
+                    "mean_distance": float(w.mean()),
+                    "launches": _add_counts(launches, counts)}
+        if isinstance(res, tuple):
+            check(bool(res[1].all()), f"exact_n64 {key}: a pair did not "
+                                      "converge")
+            out[key].update(_rounds(res[2]))
+    prices = got["cold"][3]
+    warm, counts, first_s = _drive(
+        recorder, "exact_n64",
+        lambda: compare_info(d1, d2, metric="exact_w", prices=prices))
+    check(bool(warm[1].all()), "exact_n64 warm: a pair did not converge")
+    warm_err = float((warm[0] - got["cold"][0]).abs().max())
+    check(warm_err <= 1e-5, f"exact_n64: warm and cold differ by {warm_err}")
+    check(int(warm[2].sum()) < int(got["cold"][2].sum()),
+          "exact_n64: the warm start saved no rounds")
+    out["warm"] = {"first_run_ms": first_s * 1e3, **_rounds(warm[2]),
+                   "max_abs_diff_vs_cold": warm_err,
+                   "launches": _add_counts(launches, counts)}
+    check(torch.equal(got["cold"][0], got["on"]),
+          "exact_n64: compare and compare_info differ")
+    layout_err = float((got["on"] - got["off"][0]).abs().max())
+    check(layout_err <= 1e-4, f"exact_n64: collapsed and expanded differ by "
+                              f"{layout_err}")
+    out["collapsed_vs_expanded_max_abs_diff"] = layout_err
+    out["on"]["cpu_pairs"], out["off"]["cpu_pairs"] = n_cpu, n_cpu_off
+    out["on"]["cpu_max_abs_err"] = _exact_vs_cpu(
+        "exact_n64 on", d1, d2, n_cpu, got["cold"])
+    off = compare_info(_rows(d1, slice(0, n_cpu_off)),
+                       _rows(d2, slice(0, n_cpu_off)), metric="exact_w",
+                       collapse="off")
+    out["off"]["cpu_max_abs_err"] = _exact_vs_cpu(
+        "exact_n64 off", d1, d2, n_cpu_off, off, collapse="off")
+    bn_cpu = compare(_rows(d1, slice(0, n_cpu)).to("cpu"),
+                     _rows(d2, slice(0, n_cpu)).to("cpu"),
+                     metric="bottleneck_approx")
+    check(torch.equal(got["bottleneck"][:n_cpu].cpu(), bn_cpu),
+          "exact_n64: bottleneck_approx on CUDA and CPU differ")
+    out["bottleneck"]["cpu_pairs_bitwise"] = n_cpu
+    sub = _rows(d1, slice(0, n_self))
+    for collapse in ("on", "off"):
+        check(not bool(compare(sub, sub, metric="exact_w",
+                               collapse=collapse).any()),
+              f"exact_n64 {collapse}: a self-distance is not 0")
+    out["self_distance_zero_pairs"] = n_self
+    return out
+
+
+def phase_exact_n320(d320, launches, recorder, n_points=64, n_cpu=2,
+                     n_oracle=16) -> tuple[dict, tuple]:
+    """The DD rung's 256 diagrams as 128 pairs (rows 0::2 against 1::2) at
+    ``n_points=64``: collapsed (K = 64) and expanded (M = 128) through
+    ``compare_info(metric="exact_w")``, the regime in which the kernels do
+    real work.  Every pair converges; the layouts agree within 1e-4; each is
+    held against the CPU port on ``n_cpu`` pairs; and the first
+    ``n_oracle`` pairs whose diagrams have at most ``n_points`` PD_1 points
+    (so the compaction drops nothing) are held within 1e-5 (relative above
+    1) of the Hungarian W2 of ``metrics/reference.py``.  The record also
+    holds ``_rev_every_sweep``.  Returns the record and the pairs."""
+    import numpy as np
+    from repro_torch.metrics import compare_info
+    from repro_torch.metrics.reference import wasserstein_exact
+    from repro_torch.metrics.testing import diagram_points
+
+    d1, d2 = _rows(d320, slice(0, None, 2)), _rows(d320, slice(1, None, 2))
+    pairs = d1.birth.shape[0]
+    out = {"phase": "exact_n320", "pairs": pairs, "n_points": n_points,
+           "mean_pd1_points": float(d320.count(1).float().mean()),
+           "max_pd1_points": int(d320.count(1).max()),
+           "tolerance": EX_TOLERANCE}
+    got = {}
+    for collapse in ("on", "off"):
+        def run():
+            return compare_info(d1, d2, metric="exact_w", n_points=n_points,
+                                collapse=collapse)
+
+        info, counts, first_s = _drive(recorder, "exact_n320", run)
+        got[collapse] = info
+        _distances_ok(f"exact_n320 {collapse}", info[0], (pairs,))
+        check(bool(info[1].all()),
+              f"exact_n320 {collapse}: a pair did not converge")
+        ms = _host_ms(run, reps=3)
+        out[collapse] = {
+            "first_run_ms": first_s * 1e3, "ms": ms,
+            "pairs_per_s": pairs / (ms / 1e3), **_rounds(info[2]),
+            "mean_distance": float(info[0].mean()), "cpu_pairs": n_cpu,
+            "cpu_max_abs_err": _exact_vs_cpu(
+                f"exact_n320 {collapse}", d1, d2, n_cpu, info,
+                n_points=n_points, collapse=collapse),
+            "launches": _add_counts(launches, counts)}
+    layout_err = float((got["on"][0] - got["off"][0]).abs().max())
+    check(layout_err <= 1e-4, f"exact_n320: collapsed and expanded differ "
+                              f"by {layout_err}")
+    n1, n2 = d1.count(1).cpu(), d2.count(1).cpu()
+    exact_rows = [i for i in range(pairs)
+                  if n1[i] <= n_points and n2[i] <= n_points][:n_oracle]
+    d1c, d2c = d1.to("cpu"), d2.to("cpu")
+    errs = []
+    for i in exact_rows:
+        want = wasserstein_exact(diagram_points(_rows(d1c, i), 1, 64.0),
+                                 diagram_points(_rows(d2c, i), 1, 64.0),
+                                 q=2.0)
+        for collapse in ("on", "off"):
+            w = float(got[collapse][0][i])
+            errs.append(abs(w - want) / max(1.0, want))
+    worst = float(np.max(errs)) if errs else 0.0
+    check(worst <= 1e-5, f"exact_n320: {worst} from the Hungarian W2")
+    out.update(collapsed_vs_expanded_max_abs_diff=layout_err,
+               oracle_pairs=len(exact_rows), oracle_max_rel_err=worst)
+    out["rev_every_8"] = _rev_every_sweep(d1, d2, got["on"][0])
+    return out, (d1, d2)
+
+
+def _rev_every_sweep(d1, d2, w_default) -> dict:
+    """The collapsed kernel on these pairs at n_points 16 and 64 with the
+    wrapper's rev_every (0) and with repro's untuned default (8): pairs left
+    unconverged, rounds, and at n_points 64 how far rev_every 8 moves the
+    distances from the default run's."""
+    from repro_torch.kernels import ops
+    from repro_torch.metrics import compact_top_k
+    from repro_torch.metrics.exact import (
+        cloud_costs, collapsed_cost, matched_cost)
+
+    out = {}
+    for k in (16, 64):
+        b1, e1, k1 = compact_top_k(d1, 1, k, 64.0)
+        b2, e2, k2 = compact_top_k(d2, 1, k, 64.0)
+        k1, k2 = k1.contiguous(), k2.contiguous()
+        cbar = collapsed_cost(b1, e1, k1, b2, e2, k2)[0].contiguous()
+        for rev in (ops.AUCTION_REV_EVERY, 8):
+            p2o, _, conv, rounds, _ = ops.auction_lap_collapsed(
+                cbar, k1, k2, rev_every=rev)
+            row = {"unconverged": int((~conv).sum()), **_rounds(rounds)}
+            if k == 64 and rev == 8:
+                pp, diag1, diag2 = cloud_costs(b1, e1, k1, b2, e2, k2)
+                w = matched_cost(pp, diag1, diag2, k1, k2, p2o).sqrt()
+                row["max_abs_diff_vs_default"] = float(
+                    (w - w_default).abs().max())
+            out[f"n_points{k}_rev_every{rev}"] = row
+    return out
+
+
+def phase_exact_pairwise(d64, launches, recorder, n_cpu_rows=2) -> dict:
+    """``pairwise(d64[:64], d64[64:128], metric="exact_w", block_rows=16)``
+    through the engine: a 64 x 64 matrix, four compare calls, held against
+    the CPU port on its first ``n_cpu_rows`` rows."""
+    import torch
+    from repro_torch import counters
+    from repro_torch.metrics import pairwise
+
+    q, r = _rows(d64, slice(0, 64)), _rows(d64, slice(64, 128))
+
+    def run():
+        return pairwise(q, r, metric="exact_w", block_rows=16)
+
+    mat, counts, first_s = _drive(recorder, "exact_pairwise", run)
+    calls = {f"{b}.{e}": c for (b, e), c in counters.METRIC_CALLS.items()}
+    _distances_ok("exact_pairwise", mat, (64, 64))
+    check(calls == {"exact_w.pairwise": 1, "exact_w.compare": 4},
+          f"exact_pairwise: engine calls {calls}")
+    want = pairwise(_rows(q, slice(0, n_cpu_rows)).to("cpu"), r.to("cpu"),
+                    metric="exact_w")
+    got = mat[:n_cpu_rows].cpu()
+    check(torch.allclose(got, want, rtol=EX_RTOL, atol=EX_ATOL),
+          f"exact_pairwise: CUDA and CPU differ beyond {EX_TOLERANCE}")
+    ms = _host_ms(run, reps=3)
+    return {"phase": "exact_pairwise", "shape": [64, 64], "block_rows": 16,
+            "engine_calls": calls, "first_run_ms": first_s * 1e3, "ms": ms,
+            "pairs_per_s": 64 * 64 / (ms / 1e3), "cpu_rows": n_cpu_rows,
+            "cpu_max_abs_err": float((got - want).abs().max()),
+            "launches": _add_counts(launches, counts)}
+
+
+def phase_auction_parity(dev, launches, recorder, n_pairs=200) -> dict:
+    """The auction parity sweep of benchmarks/metrics_bench.py through the
+    port, with its gates: 200 pairs of ``random_diagram`` from
+    ``default_rng(35)`` at n_points 16; ``exact_w`` within 1e-5 of
+    ``wasserstein_exact(q=2)`` in both layouts, ``bottleneck_approx``
+    within max(1e-4, 1e-4 * ref) of ``bottleneck_exact``, every pair
+    converged, the layouts within 1e-4 of each other, collapsed rounds at
+    least 5x fewer than expanded; and the port's own gate, the exact_w
+    self-distance exactly 0.0 in both layouts."""
+    import numpy as np
+    import torch
+    from repro_torch.metrics import compare, compare_info
+    from repro_torch.metrics.reference import (
+        bottleneck_exact, wasserstein_exact)
+    from repro_torch.metrics.testing import diagram_points, random_diagram
+
+    rng = np.random.default_rng(35)
+    pairs = [(random_diagram(rng, essential=int(rng.integers(0, 3)),
+                             device="cpu"), random_diagram(rng, device="cpu"))
+             for _ in range(n_pairs)]
+
+    def stack(ds):
+        return type(ds[0])(*(torch.stack([getattr(d, k) for d in ds])
+                             for k in ("birth", "death", "dim",
+                                       "valid"))).to(dev)
+
+    d1, d2 = stack([a for a, _ in pairs]), stack([b for _, b in pairs])
+    pts = [(diagram_points(a, 1, 64.0), diagram_points(b, 1, 64.0))
+           for a, b in pairs]
+    w2 = np.array([wasserstein_exact(a, b, q=2.0) for a, b in pts])
+    bn_ref = np.array([bottleneck_exact(a, b) for a, b in pts])
+    out = {"phase": "auction_parity", "pairs": n_pairs, "n_points": 16,
+           "gate": "|w - W2| <= 1e-5 (both layouts), |bn - W_inf| <= "
+                   "max(1e-4, 1e-4 W_inf), all converged, layouts within "
+                   "1e-4, rounds reduction >= 5, self-distance 0.0"}
+    info = {}
+    for collapse in ("on", "off"):
+        res, counts, _ = _drive(
+            recorder, "auction_parity",
+            lambda: compare_info(d1, d2, metric="exact_w",
+                                 collapse=collapse))
+        info[collapse] = res
+        w = res[0].cpu().numpy()
+        failed = int((np.abs(w - w2) > 1e-5).sum())
+        check(failed == 0, f"auction_parity {collapse}: {failed} of "
+                           f"{n_pairs} pairs beyond 1e-5 of the exact W2")
+        check(bool(res[1].all()),
+              f"auction_parity {collapse}: a pair did not converge")
+        self_d = compare(d1, d1, metric="exact_w", collapse=collapse)
+        check(not bool(self_d.any()),
+              f"auction_parity {collapse}: a self-distance is not 0.0")
+        out[collapse] = {"failed": failed,
+                         "max_abs_err": float(np.abs(w - w2).max()),
+                         **_rounds(res[2]),
+                         "self_distance_max": float(self_d.max()),
+                         "launches": _add_counts(launches, counts)}
+    bn, counts, _ = _drive(
+        recorder, "auction_parity",
+        lambda: compare(d1, d2, metric="bottleneck_approx"))
+    bn = bn.cpu().numpy()
+    bn_failed = int((np.abs(bn - bn_ref)
+                     > np.maximum(1e-4, 1e-4 * bn_ref)).sum())
+    check(bn_failed == 0, f"auction_parity: {bn_failed} bottleneck misses")
+    layout = float((info["on"][0] - info["off"][0]).abs().max())
+    check(layout <= 1e-4, f"auction_parity: layouts differ by {layout}")
+    reduction = (float(info["off"][2].float().mean())
+                 / max(float(info["on"][2].float().mean()), 1e-9))
+    check(reduction >= 5.0, f"auction_parity: rounds reduction {reduction}")
+    out.update(bottleneck_failed=bn_failed,
+               bottleneck_max_abs_err=float(np.abs(bn - bn_ref).max()),
+               bottleneck_launches=_add_counts(launches, counts),
+               collapse_vs_expanded_max_diff=layout,
+               rounds_reduction=reduction)
+    return out
+
+
 def _profile(name, fn, reps: int = 1) -> dict:
     """Device time by kernel over ``reps`` steady ``fn()`` calls
     (torch.profiler, CUDA activity), the device's idle share of the wall
@@ -1125,7 +1482,8 @@ def _profile(name, fn, reps: int = 1) -> dict:
               "domination_tile_kernel", "gf2_reduce_kernel",
               "pack_rows_kernel", "common_neighbors_tile_kernel",
               "pairwise_l1_kernel", "sinkhorn_lse_kernel",
-              "sinkhorn_pair_sum_kernel", "sum_partials_kernel")
+              "sinkhorn_pair_sum_kernel", "sum_partials_kernel",
+              "auction_lap_kernel", "auction_collapsed_kernel")
     ported_ms = sum(r[0] for r in rows if any(p in r[1] for p in ported))
     check(busy_ms > 0, f"{name}: no device time recorded")
     return {"phase": name, "reps": reps, "wall_ms": wall_ms,
@@ -1169,6 +1527,15 @@ def phase_profile_sinkhorn(d1, d2) -> dict:
     from repro_torch.metrics import compare
 
     return _profile("profile_sinkhorn", lambda: compare(d1, d2, **SK_FULL))
+
+
+def phase_profile_exact(d1, d2) -> dict:
+    """``_profile`` of one steady ``exact_n320`` call at the registry's
+    default layout (collapsed, K = 64)."""
+    from repro_torch.metrics import compare
+
+    return _profile("profile_exact", lambda: compare(
+        d1, d2, metric="exact_w", n_points=64))
 
 
 def _time_kcore(adj, alive, k, sweeps) -> dict:
@@ -1371,11 +1738,85 @@ def _time_sinkhorn_pair_sum(xp, yp, f, g, log_a, log_b, e_t, mode) -> dict:
             "library_ms": None, "bound_ms": bt, "bound_by": by}
 
 
+def _auction_row(name, cost, got, want, scans, io_bytes, kernel, plain):
+    """A timer row of an auction kernel on (B, M, M) ``cost``: agreement
+    with the plain version, rounds, kernel and plain times, and the bound:
+    ``io_bytes`` (costs and inputs in, outputs out) against
+    AUCTION_SCAN_OPS * M lane operations for each row or column scan this
+    input needs (counted by the plain solver, which makes the kernel's
+    rounds)."""
+    from repro_torch.metrics.testing import (
+        AUCTION_TOTAL_TOLERANCE, auction_agreement)
+
+    differ, err, ok = auction_agreement(got, want, cost)
+    rounds = want[3]
+    m = cost.shape[-1]
+    bt, by = bound(io_bytes, AUCTION_SCAN_OPS * m * int(scans.sum()))
+    return {"name": name, "shape": list(cost.shape), "max_abs_err": err,
+            "outputs_differing": differ,
+            "tolerance": "bitwise but the totals: " + AUCTION_TOTAL_TOLERANCE,
+            "within_tolerance": differ == 0 and ok,
+            "rounds_sum": int(rounds.sum()), "rounds_max": int(rounds.max()),
+            "scans": int(scans.sum()), "ms": cuda_ms(kernel),
+            "plain_ms": cuda_ms(plain, reps=1), "library_ms": None,
+            "bound_ms": bt, "bound_by": by}
+
+
+def _default_ladder(name, ladder) -> int:
+    import torch
+    from repro_torch.kernels import auction_lap as al
+
+    n = ladder.numel()
+    check(torch.equal(ladder, al.eps_ladder(
+        al.DEFAULT_EPS0, al.DEFAULT_EPS_FACTOR, n, ladder.device)),
+        f"{name}: the main path ran another eps ladder")
+    return n
+
+
+def _time_auction_lap(cost, ladder, max_rounds) -> dict:
+    """Kernel and plain solver; no PyTorch call solves an assignment."""
+    from repro_torch.kernels import auction_lap as al
+
+    b, m, _ = cost.shape
+    kw = dict(n_scales=_default_ladder("auction_lap", ladder),
+              max_rounds=max_rounds)
+    *want, scans = al.auction_solve_counted(cost, **kw)
+    got = al.auction_lap_cuda(cost, ladder, max_rounds)
+    return _auction_row(
+        "auction_lap", cost, got, want, scans,
+        4.0 * b * m * m + 4.0 * b * m + 9.0 * b,
+        lambda: al.auction_lap_cuda(cost, ladder, max_rounds),
+        lambda: al.auction_solve(cost, **kw))
+
+
+def _time_auction_collapsed(cbar, keep1, keep2, price0, ladder, max_rounds,
+                            rev_every) -> dict:
+    """Kernel and plain solver; no PyTorch call solves an assignment."""
+    from repro_torch.kernels import auction_lap as al
+
+    b, k, _ = cbar.shape
+    kw = dict(n_scales=_default_ladder("auction_lap_collapsed", ladder),
+              max_rounds=max_rounds, rev_every=rev_every)
+    args = (cbar, keep1, keep2, price0)
+    *want, scans = al.auction_solve_collapsed_counted(*args, **kw)
+    got = al.auction_lap_collapsed_cuda(*args, ladder, max_rounds, rev_every)
+    row = _auction_row(
+        "auction_lap_collapsed", cbar, got, want, scans,
+        4.0 * b * k * k + 14.0 * b * k + 9.0 * b,
+        lambda: al.auction_lap_collapsed_cuda(*args, ladder, max_rounds,
+                                              rev_every),
+        lambda: al.auction_solve_collapsed(*args, **kw))
+    row["rev_every"] = rev_every
+    return row
+
+
 TIMERS = {"kcore_peel": _time_kcore, "domination": _time_domination,
           "gf2_reduce": _time_gf2, "common_neighbors": _time_common_neighbors,
           "pairwise_l1": _time_pairwise_l1,
           "sinkhorn_lse": _time_sinkhorn_lse,
-          "sinkhorn_pair_sum": _time_sinkhorn_pair_sum}
+          "sinkhorn_pair_sum": _time_sinkhorn_pair_sum,
+          "auction_lap": _time_auction_lap,
+          "auction_lap_collapsed": _time_auction_collapsed}
 
 
 def kernel_rows(recorder, phase) -> list[dict]:
@@ -1459,21 +1900,27 @@ def main() -> int:
             emit(record)
             emit(phase_sinkhorn_pairwise(d64, launches, recorder))
             emit(phase_sinkhorn_parity(dev, launches, recorder))
+            emit(phase_exact_n64(d64, launches, recorder))
+            record, ex_pairs = phase_exact_n320(d320, launches, recorder)
+            emit(record)
+            emit(phase_exact_pairwise(d64, launches, recorder))
+            emit(phase_auction_parity(dev, launches, recorder))
         finally:
             Recorder.uninstall(originals)
         rows = contract_rows(
             [r for ph in ("signature_n64", "clustering_n64", "index_n64",
-                          "sinkhorn_full_n320")
+                          "sinkhorn_full_n320", "exact_n320")
              for r in kernel_rows(recorder, ph)], launches)
         emit({"phase": "kernel_times", "at": {
             ph: kernel_rows(recorder, ph)
             for ph in ("signature_n320", "table1_n1024", "clustering_n1024",
                        "clustering_twitter", "fig2", "sinkhorn_n64",
-                       "sinkhorn_parity")}})
+                       "sinkhorn_parity", "exact_n64")}})
         emit(phase_profile(n64, N64_CAPS))
         emit(phase_profile_clustering(n64))
         emit(phase_profile_index(*index_run))
         emit(phase_profile_sinkhorn(*sk_pairs))
+        emit(phase_profile_exact(*ex_pairs))
         card = card_line()
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)

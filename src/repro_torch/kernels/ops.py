@@ -12,6 +12,9 @@ import torch
 
 from repro_torch import counters
 from repro_torch.kernels import ref
+from repro_torch.kernels.auction_lap import (
+    DEFAULT_EPS0, DEFAULT_EPS_FACTOR, auction_lap_collapsed_cuda,
+    auction_lap_cuda, default_max_rounds, eps_ladder)
 from repro_torch.kernels.common_neighbors import common_neighbors_cuda
 from repro_torch.kernels.domination import domination_cuda
 from repro_torch.kernels.gf2_reduce import MAX_BLOCKS, gf2_reduce_cuda
@@ -232,3 +235,89 @@ def sinkhorn_pair_sum(xp: torch.Tensor, yp: torch.Tensor, f: torch.Tensor,
             counters.KERNEL_LAUNCHES["sinkhorn_pair_sum"] += 1
         return out
     return ref.sinkhorn_pair_sum_ref(xp, yp, f, g, log_a, log_b, e_t, mode)
+
+
+# the widest problem the auction kernels take: their per-slot state must fit
+# in one block's shared memory; the registry reaches M = 512 (the expanded
+# form at n_points = 256)
+AUCTION_MAX_M = 2048
+# The collapsed wrapper's forward/reverse phase ratio: reverse rounds only
+# once no person is free, the value repro's ops wrapper resolves on the CPU
+# (results/TUNED_tiles.json).  repro's untuned default, 8, forces a reverse
+# round every 8 rounds; on the DD rung's diagrams it leaves pairs
+# unconverged, with distances off the Hungarian W2, and takes more rounds
+# (chip_smoke.py, phase exact_n320, "rev_every_8").
+AUCTION_REV_EVERY = 0
+
+
+def _check_auction(name: str, cost: torch.Tensor, n_scales: int,
+                   max_rounds: int | None) -> tuple[int, int, int]:
+    if cost.dim() != 3 or cost.shape[1] != cost.shape[2]:
+        raise ValueError(f"{name}: want (B, M, M) costs, got "
+                         f"{tuple(cost.shape)}")
+    b, m, _ = cost.shape
+    _check(f"{name} cost", cost, torch.float32, (b, m, m), cost.device)
+    if m > AUCTION_MAX_M:
+        raise ValueError(f"{name}: M = {m} exceeds AUCTION_MAX_M = "
+                         f"{AUCTION_MAX_M}")
+    if n_scales < 1:
+        raise ValueError(f"{name}: n_scales must be >= 1, got {n_scales}")
+    rounds = default_max_rounds(m) if max_rounds is None else int(max_rounds)
+    if rounds < 0:
+        raise ValueError(f"{name}: max_rounds must be >= 0, got {rounds}")
+    return b, m, rounds
+
+
+def auction_lap(cost: torch.Tensor, n_scales: int = 10,
+                max_rounds: int | None = None):
+    """Batched ε-scaled auction assignment: (B, M, M) f32 costs ->
+    ``(assign (B, M) int32, total (B,) f32, converged (B,) bool, rounds (B,)
+    int32)``; see :mod:`repro_torch.kernels.auction_lap` for the contract.
+
+    On CUDA one launch solves the whole batch, one CTA per problem.
+    """
+    b, m, rounds = _check_auction("auction_lap", cost, n_scales, max_rounds)
+    if _route(cost.device, "auction_lap"):
+        ladder = eps_ladder(DEFAULT_EPS0, DEFAULT_EPS_FACTOR, n_scales,
+                            cost.device)
+        out = auction_lap_cuda(cost, ladder, rounds)
+        if b and m:
+            counters.KERNEL_LAUNCHES["auction_lap"] += 1
+        return out
+    return ref.auction_lap_ref(cost, n_scales=n_scales, max_rounds=rounds)
+
+
+def auction_lap_collapsed(cbar: torch.Tensor, keep1: torch.Tensor,
+                          keep2: torch.Tensor,
+                          price0: torch.Tensor | None = None,
+                          n_scales: int = 10, max_rounds: int | None = None,
+                          rev_every: int = AUCTION_REV_EVERY):
+    """Batched collapsed forward/reverse auction: (B, K, K) f32 reduced
+    costs, (B, K) bool valid-slot masks and an optional (B, K) f32 warm
+    start (``None``: zeros) -> ``(p2o (B, K) int32, total (B,) f32,
+    converged (B,) bool, rounds (B,) int32, price (B, K) f32)``.
+
+    ``rev_every`` > 0 forces a reverse round every that many rounds while
+    free persons remain; 0 (``AUCTION_REV_EVERY``) runs reverse rounds only
+    once none are left.
+    """
+    b, k, rounds = _check_auction("auction_lap_collapsed", cbar, n_scales,
+                                  max_rounds)
+    dev = cbar.device
+    _check("auction_lap_collapsed keep1", keep1, torch.bool, (b, k), dev)
+    _check("auction_lap_collapsed keep2", keep2, torch.bool, (b, k), dev)
+    if price0 is None:
+        price0 = torch.zeros((b, k), dtype=torch.float32, device=dev)
+    _check("auction_lap_collapsed price0", price0, torch.float32, (b, k), dev)
+    if rev_every < 0:
+        raise ValueError(f"rev_every must be >= 0, got {rev_every}")
+    if _route(dev, "auction_lap_collapsed"):
+        ladder = eps_ladder(DEFAULT_EPS0, DEFAULT_EPS_FACTOR, n_scales, dev)
+        out = auction_lap_collapsed_cuda(cbar, keep1, keep2, price0, ladder,
+                                         rounds, int(rev_every))
+        if b and k:
+            counters.KERNEL_LAUNCHES["auction_lap_collapsed"] += 1
+        return out
+    return ref.auction_lap_collapsed_ref(cbar, keep1, keep2, price0,
+                                         n_scales=n_scales, max_rounds=rounds,
+                                         rev_every=int(rev_every))

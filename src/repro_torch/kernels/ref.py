@@ -217,3 +217,31 @@ def sinkhorn_pair_sum_ref(xp: torch.Tensor, yp: torch.Tensor, f: torch.Tensor,
             c = z.add_(la + lb).exp_().mul_(c)
         out[s] = c.masked_fill_(unpaired, 0.0).sum((-1, -2))
     return out
+
+
+# --------------------------------------------------------------- auction
+
+def auction_lap_ref(cost: torch.Tensor, **kw):
+    """ε-scaled Jacobi auction on a (B, M, M) batch of costs.
+
+    Delegates to :func:`repro_torch.kernels.auction_lap.auction_solve`, the
+    batched form of ``repro``'s ``auction_solve``: ``(assign, total,
+    converged, rounds)``.
+    """
+    from repro_torch.kernels.auction_lap import auction_solve
+
+    return auction_solve(cost, **kw)
+
+
+def auction_lap_collapsed_ref(cbar: torch.Tensor, keep1: torch.Tensor,
+                              keep2: torch.Tensor, price0=None, **kw):
+    """Collapsed forward/reverse auction on a (B, K, K) batch of reduced
+    costs.
+
+    Delegates to
+    :func:`repro_torch.kernels.auction_lap.auction_solve_collapsed`:
+    ``(p2o, total, converged, rounds, price)``.
+    """
+    from repro_torch.kernels.auction_lap import auction_solve_collapsed
+
+    return auction_solve_collapsed(cbar, keep1, keep2, price0, **kw)

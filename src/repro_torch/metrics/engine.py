@@ -18,10 +18,13 @@ name                      exact   notes
 ``sinkhorn``              no      debiased entropic W2 (≤ ~5% of exact W2;
                                   ``impl="blocked"`` rebuilds the cost in
                                   the ``sinkhorn_lse`` CUDA kernel)
+``exact_w``               yes     auction-LAP q-Wasserstein (the
+                                  ``auction_lap_collapsed`` kernel, or
+                                  ``auction_lap`` with ``collapse="off"``);
+                                  warm-startable through ``compare_info``
+``bottleneck_approx``     no      threshold bisection over collapsed 0/1
+                                  auction feasibility solves
 ========================  ======  =========================================
-
-``repro``'s ``exact_w`` and ``bottleneck_approx`` backends come with the
-port of its auction kernels; until then they are unknown names here.
 
 Entry points: ``compare`` (row-aligned pairs) and ``pairwise`` (the Q×N
 cross product).  Each call adds one to
@@ -37,6 +40,7 @@ import torch
 
 from repro_torch import counters
 from repro_torch.core.persistence import Diagrams
+from repro_torch.metrics import exact as _exact
 from repro_torch.metrics.distances import sinkhorn_w2, sliced_wasserstein
 
 _FIELDS = ("birth", "death", "dim", "valid")
@@ -213,4 +217,29 @@ register_metric(MetricBackend(
                 "rebuilds the cost on the fly in the sinkhorn_lse CUDA "
                 "kernel (one thread per row, 128-column tiles in shared "
                 "memory)",
+))
+register_metric(MetricBackend(
+    name="exact_w",
+    fn=_exact.exact_w,
+    info_fn=_exact.exact_w_full,
+    exact=True,
+    error_bound="exact min-cost matching (0 mismatches vs the Hungarian "
+                "oracle; exact up to top-n_points compaction)",
+    cost_class="O(P² · rounds) per pair; P = n_points collapsed "
+               "(collapse='on'), 2·n_points expanded",
+    description="batched auction-LAP q-Wasserstein: reservoir-collapsed "
+                "forward/reverse auction (warm-startable prices via "
+                "compare_info) or the legacy expanded matrix "
+                "(collapse='off')",
+))
+register_metric(MetricBackend(
+    name="bottleneck_approx",
+    fn=_exact.bottleneck_approx,
+    exact=False,
+    error_bound="within max_cost · 2^-n_iters of exact W∞ on the "
+                "compacted clouds (≈1e-7 relative at the default), plus "
+                "the top-n_points compaction",
+    cost_class="O(n_iters · P² · rounds) per pair, P = 2·n_points",
+    description="threshold bisection with batched 0/1 auction feasibility "
+                "solves; reference.bottleneck_exact is the exact oracle",
 ))

@@ -1,5 +1,6 @@
 """Synthetic Diagrams generators for tests and checks (the port of
-``repro.metrics.testing``), and seeded operands for the Sinkhorn kernels.
+``repro.metrics.testing``), and seeded operands for the Sinkhorn and
+auction kernels.
 
 Every draw comes from a numpy ``Generator`` in the same order as in
 ``repro``, so the same ``rng`` gives the same arrays in both packages: NaN
@@ -128,3 +129,144 @@ def sinkhorn_operands(rng: np.random.Generator, b: int, m: int, n: int,
     dev = resolve_device(device)
     return {k: torch.from_numpy(np.asarray(v, np.float32)).to(dev)
             for k, v in arrays.items()}
+
+
+# (kind, B, M, operand options, solver options) of the auction kernel
+# checks.  "expanded" cases go to auction_lap, "collapsed" and "warm" ones
+# to auction_lap_collapsed.  M = 1, 2, around one warp and 128; one shape
+# past shared memory for each kernel; all-zero costs (every option ties);
+# all-invalid masks (0 rounds); a warm start; rev_every 0, 2 and 8; the
+# f32 stall regression of repro's tests (eps0 1e-12, factor 1, one scale,
+# costs of order 1e6); max_rounds 1 (no scale converges); B = 1 and 4096.
+AUCTION_CASES = (
+    ("expanded", 4, 1, {}, {}),
+    ("expanded", 4, 2, {}, {}),
+    ("expanded", 3, 31, {}, {}),
+    ("expanded", 3, 33, {}, {}),
+    ("expanded", 2, 128, {}, {}),
+    ("expanded", 2, 256, {}, {}),
+    ("expanded", 3, 16, {"zero": True}, {}),
+    ("expanded", 4, 24, {}, {"max_rounds": 1}),
+    ("expanded", 1, 32, {}, {}),
+    ("expanded", 4096, 8, {}, {}),
+    ("collapsed", 4, 1, {}, {}),
+    ("collapsed", 4, 2, {}, {}),
+    ("collapsed", 3, 31, {}, {}),
+    ("collapsed", 3, 33, {}, {}),
+    ("collapsed", 2, 128, {}, {}),
+    ("collapsed", 2, 300, {}, {}),
+    ("collapsed", 3, 16, {"zero": True}, {}),
+    ("collapsed", 3, 16, {"invalid": True}, {}),
+    ("warm", 6, 16, {}, {}),
+    ("collapsed", 8, 16, {}, {"rev_every": 0}),
+    ("collapsed", 8, 16, {}, {"rev_every": 2}),
+    ("collapsed", 8, 16, {}, {"rev_every": 8}),
+    ("collapsed", 4, 8, {"scale": 1e6},
+     {"eps0": 1e-12, "eps_factor": 1.0, "n_scales": 1}),
+    ("collapsed", 4, 16, {}, {"max_rounds": 1}),
+    ("collapsed", 1, 16, {}, {}),
+    ("collapsed", 4096, 16, {}, {}),
+)
+
+
+def auction_operands(rng: np.random.Generator, b: int, m: int, kind: str,
+                     device=None, zero: bool = False, invalid: bool = False,
+                     scale: float = 1.0) -> dict[str, torch.Tensor]:
+    """Operands of the auction kernels, on ``device``.
+
+    ``kind="expanded"``: ``cost`` (B, M, M) float32 uniform in [0, 5).
+    ``"collapsed"``: reduced costs ``cbar`` (B, M, M) uniform in [-3, 3),
+    valid-slot masks ``keep1``/``keep2`` (B, M) with 70% of the slots set
+    (all of them in batch item 0), and a zero ``price0``.  ``"warm"``: the
+    same with a nonnegative ``price0`` on random valid slots of the odd
+    batch items.  ``zero`` zeroes the costs, ``invalid`` clears every mask,
+    ``scale`` multiplies the costs.
+    """
+    if kind not in ("expanded", "collapsed", "warm"):
+        raise ValueError(f"unknown auction operand kind {kind!r}")
+    if kind == "expanded":
+        arrays = dict(cost=rng.uniform(0, 5, (b, m, m)))
+    else:
+        keep1 = rng.random((b, m)) < 0.7
+        keep2 = rng.random((b, m)) < 0.7
+        keep1[0] = keep2[0] = True
+        if invalid:
+            keep1[:] = keep2[:] = False
+        price0 = np.zeros((b, m))
+        if kind == "warm":
+            hot = keep2 & (rng.random((b, m)) < 0.5)
+            hot[0::2] = False
+            price0 = np.where(hot, rng.uniform(0, 2, (b, m)), 0.0)
+        arrays = dict(cost=rng.uniform(-3, 3, (b, m, m)), keep1=keep1,
+                      keep2=keep2, price0=price0)
+    arrays["cost"] = arrays["cost"] * (0.0 if zero else scale)
+    if kind != "expanded":
+        arrays["cbar"] = arrays.pop("cost")
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(np.asarray(
+        v, bool if v.dtype == bool else np.float32)).to(dev)
+        for k, v in arrays.items()}
+
+
+def auction_case(case, device=None):
+    """Operands and full solver options of one ``AUCTION_CASES`` entry,
+    seeded from its shape: ``(operands, options)``, the options with
+    ``eps0``, ``eps_factor``, ``n_scales``, ``max_rounds`` (and
+    ``rev_every`` for the collapsed kinds) all set."""
+    from repro_torch.kernels import auction_lap as al
+
+    kind, b, m, opts, solver = case
+    seed = (b * 7919 + m * 31 + len(opts) + 3 * len(solver)) % (2 ** 32)
+    t = auction_operands(np.random.default_rng(seed), b, m, kind, device,
+                         **opts)
+    full = dict(eps0=al.DEFAULT_EPS0, eps_factor=al.DEFAULT_EPS_FACTOR,
+                n_scales=al.DEFAULT_N_SCALES,
+                max_rounds=al.default_max_rounds(m))
+    if kind != "expanded":
+        full["rev_every"] = al.DEFAULT_REV_EVERY
+    full.update(solver)
+    return t, full
+
+
+def solve_auction_case(case, device=None, kernel: bool = False):
+    """One ``AUCTION_CASES`` entry through the CUDA launcher (``kernel``,
+    on a CUDA ``device``) or the plain solver: the solver's outputs."""
+    from repro_torch.kernels import auction_lap as al
+
+    t, o = auction_case(case, device)
+    if kernel:
+        ladder = al.eps_ladder(o["eps0"], o["eps_factor"], o["n_scales"],
+                               t["cbar" if "cbar" in t else "cost"].device)
+        if case[0] == "expanded":
+            return al.auction_lap_cuda(t["cost"], ladder, o["max_rounds"])
+        return al.auction_lap_collapsed_cuda(
+            t["cbar"], t["keep1"], t["keep2"], t["price0"], ladder,
+            o["max_rounds"], o["rev_every"])
+    if case[0] == "expanded":
+        return al.auction_solve(t["cost"], **o)
+    return al.auction_solve_collapsed(t["cbar"], t["keep1"], t["keep2"],
+                                      t["price0"], **o)
+
+
+# totals are f32 sums of the same M terms in two orders; each order errs by
+# at most (M - 1) * 2^-24 * sum |term|
+AUCTION_TOTAL_TOLERANCE = "M * 2^-23 * sum_i |cost[i, assign[i]]| + 1e-30"
+
+
+def auction_agreement(got, want, cost) -> tuple[int, float, bool]:
+    """Compare two auction solvers' outputs on the same (B, M, M) costs.
+
+    Every output but the totals must be equal (``torch.equal``); returns
+    ``(number of outputs that differ, largest |total difference|, whether
+    every total is within AUCTION_TOTAL_TOLERANCE)``, the totals compared
+    on the host.
+    """
+    differ = sum(not torch.equal(g.cpu(), w.cpu())
+                 for i, (g, w) in enumerate(zip(got, want)) if i != 1)
+    assign = want[0].cpu().long()
+    m = cost.shape[-1]
+    picked = cost.cpu().gather(-1, assign.clamp(min=0)[..., None])[..., 0]
+    mag = torch.where(assign >= 0, picked.abs(), 0.0).sum(-1)
+    err = (got[1].cpu() - want[1].cpu()).abs()
+    ok = bool((err <= m * 2.0 ** -23 * mag + 1e-30).all())
+    return differ, float(err.max()) if err.numel() else 0.0, ok

@@ -14,6 +14,13 @@ the kernel's exponents are bitwise the plain version's, but CUDA's
 ``expf``/``logf`` and the sums' order differ by ulps, which the eps ladder
 carries through its updates; -inf must sit exactly where the plain version
 has it, and two launches on the same inputs must agree bitwise.
+The auction kernels run the plain solvers' float operations round for
+round, so assignments, prices, round counts and convergence flags are held
+bitwise; the totals, f32 sums of the same terms in another order, within
+``metrics.testing.AUCTION_TOTAL_TOLERANCE``.  ``exact_w`` on the card is
+held against the CPU port within rtol 1e-6, atol 1e-5: the expanded totals
+are f32 sums in another order, the collapsed W^q float64 sums in another
+order rounded once, and a square root of a total near 0 magnifies an ulp.
 """
 import numpy as np
 import pytest
@@ -27,7 +34,8 @@ from repro_torch.kernels.kcore_peel import kcore_peel_cuda
 from repro_torch.kernels.pairwise_gram import pairwise_l1_cuda
 from repro_torch.kernels.sinkhorn_lse import (
     sinkhorn_lse_cuda, sinkhorn_pair_sum_cuda)
-from repro_torch.metrics.testing import SINKHORN_CASES, sinkhorn_operands
+from repro_torch.metrics.testing import (
+    AUCTION_CASES, SINKHORN_CASES, auction_operands, sinkhorn_operands)
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -266,3 +274,62 @@ def test_sinkhorn_wrappers_launch_and_count(cuda):
     counters.reset()
     sinkhorn_w2(d1, d2, impl="dense", n_iters=2, n_scales=2)
     assert counters.snapshot()["sinkhorn_lse"] == 0
+
+
+def _case_id(case):
+    kind, b, m, opts, solver = case
+    extra = "-".join(f"{k}{v}" for k, v in {**opts, **solver}.items())
+    return f"{kind}-B{b}-M{m}" + (f"-{extra}" if extra else "")
+
+
+@pytest.mark.parametrize("case", AUCTION_CASES, ids=_case_id)
+def test_auction_kernel(cuda, case):
+    from repro_torch.metrics.testing import (
+        auction_agreement, auction_case, solve_auction_case)
+
+    got = solve_auction_case(case, cuda, kernel=True)
+    want = solve_auction_case(case, cuda, kernel=False)
+    t, _ = auction_case(case, cuda)
+    differ, err, ok = auction_agreement(got, want, t.get("cost", t.get("cbar")))
+    assert differ == 0 and ok, (differ, err)
+    again = solve_auction_case(case, cuda, kernel=True)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+def test_auction_wrappers_launch_and_count(cuda):
+    from repro_torch import counters
+
+    t = auction_operands(np.random.default_rng(5), 3, 6, "collapsed", cuda)
+    counters.reset()
+    ops.auction_lap(t["cbar"].abs().contiguous(), n_scales=3)
+    ops.auction_lap_collapsed(t["cbar"], t["keep1"], t["keep2"])
+    snap = counters.snapshot()
+    assert (snap["auction_lap"], snap["auction_lap_collapsed"]) == (1, 1)
+
+
+@pytest.mark.parametrize("collapse", ["on", "off"])
+def test_exact_w_on_the_card_matches_the_cpu(cuda, collapse):
+    from repro_torch.metrics import compare_info
+
+    d1, d2 = _random_pairs(44, 12, 12, cuda)
+    got = compare_info(d1, d2, metric="exact_w", collapse=collapse)
+    want = compare_info(d1.to("cpu"), d2.to("cpu"), metric="exact_w",
+                        collapse=collapse)
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-6, atol=1e-5)
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g.cpu(), w)
+    if collapse == "on":  # a warm start from the returned prices
+        warm = compare_info(d1, d2, metric="exact_w", prices=got[3])
+        torch.testing.assert_close(warm[0], got[0], rtol=1e-6, atol=1e-5)
+
+
+def test_bottleneck_and_self_distance_on_the_card(cuda):
+    from repro_torch.metrics import compare
+
+    d1, d2 = _random_pairs(45, 8, 12, cuda)
+    got = compare(d1, d2, metric="bottleneck_approx")
+    want = compare(d1.to("cpu"), d2.to("cpu"), metric="bottleneck_approx")
+    assert torch.equal(got.cpu(), want)
+    for collapse in ("on", "off"):
+        self_ = compare(d1, d1, metric="exact_w", collapse=collapse)
+        assert torch.equal(self_, torch.zeros_like(self_))

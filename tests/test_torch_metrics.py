@@ -268,7 +268,7 @@ def test_registry_rejects_unknown_names():
         engine.compare(t1, t2, metric="sinkhorn", n_dirs=8)
     with pytest.raises(ValueError, match="does not accept"):
         engine.pairwise(t1, t2, metric="sw", eps=0.1)
-    for name in ("bogus", "exact_w", "bottleneck_approx"):
+    for name in ("bogus", "exact", "bottleneck"):
         with pytest.raises(ValueError, match="unknown metric backend"):
             engine.compare(t1, t2, metric=name)
     with pytest.raises(ValueError, match="no diagnostics entry point"):
