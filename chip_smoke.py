@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the nine hand-written kernels from the seven sources in
+Builds the ten hand-written kernels from the eight sources in
 ``src/repro_torch/csrc`` (one nvcc per source, in parallel), holds each
 kernel against its plain PyTorch version on the card, then drives the
-port's four paths:
+port's five paths:
 
 * reduce -> repack -> persist through ``make_topo_plan`` at three sizes: the
   n64 serve rung (4096 graphs), the DD rung of Table 2 (256 graphs of 320
@@ -17,6 +17,12 @@ port's four paths:
   kNN queries without and with the LSH stage, a save/load round trip); and
   the three probes of ``benchmarks/fig2_clustering.py``, whose persistence-
   kernel clustering must reach purity and accuracy >= 0.66;
+* retrieval through a ShardedIndex (the ``hamming_scan`` kernel): the LSH
+  index of the n64 diagrams wrapped on the mesh (1, 1) and on a 4-shard
+  mesh that repeats the one card, and a 65,536-row corpus of noisy copies
+  on the mesh (1, 1); candidates, answers and gathered clouds bitwise the
+  single-host index's (whose coarse stage scans on the host), the SUMMA
+  Gram within the pairwise-L1 tolerance;
 * the entropic Sinkhorn-W2 path of the MetricEngine: 2048 row-aligned n64
   pairs through ``compare(metric="sinkhorn")``, dense and blocked (the
   ``sinkhorn_lse`` and ``sinkhorn_pair_sum`` kernels); the DD rung's
@@ -36,8 +42,8 @@ CUDA results are compared with the same functions run on the CPU: bitwise
 where the computation is exact, within a stated tolerance where float sums
 run in another order.  Then each kernel is timed at the largest input each
 phase gave it, and one n64 execution, one n64 clustering call, one
-index run, one full-tensor Sinkhorn call and one DD-rung exact_w call are
-profiled for device time
+index run (and the sharded LSH query alone), one full-tensor Sinkhorn call
+and one DD-rung exact_w call are profiled for device time
 by kernel.  Each phase prints one JSON line; any failure exits
 non-zero.  The last two lines are the ``kernels`` summary (launches on the
 main path, error against the plain version, times and bounds) after the
@@ -59,7 +65,8 @@ ROOT = Path(__file__).resolve().parent
 # kernels' integer word ops and non-FMA f32 ops
 HBM_BYTES_PER_S = 3.35e12
 LANE_OPS_PER_S = 33.5e12
-# the multi-function units (ex2, lg2, rcp): 16 per SM per clock on Hopper
+# the multi-function units (ex2, lg2, rcp): 16 per SM per clock on Hopper;
+# popcounts run at the same rate
 MUFU_OPS_PER_S = 16 * 132 * 1.98e9
 
 REPLACES = {
@@ -72,12 +79,14 @@ REPLACES = {
     "sinkhorn_pair_sum": "src/repro/kernels/sinkhorn_lse.py:173",
     "auction_lap": "src/repro/kernels/auction_lap.py:479",
     "auction_lap_collapsed": "src/repro/kernels/auction_lap.py:548",
+    "hamming_scan": "src/repro/kernels/hamming.py:61",
 }
 # the batched Pallas form, gf2_reduce_batch_pallas, is the same CUDA kernel
 ALSO_REPLACES = {"gf2_reduce": "src/repro/kernels/gf2_reduce.py:167"}
 SOURCE = {k: f"src/repro_torch/csrc/{k}.cu" for k in REPLACES}
 SOURCE["sinkhorn_pair_sum"] = SOURCE["sinkhorn_lse"]  # one source, both
 SOURCE["auction_lap_collapsed"] = SOURCE["auction_lap"]
+SOURCE["hamming_scan"] = "src/repro_torch/csrc/hamming.cu"
 N64_CAPS = dict(edge_cap=320, tri_cap=512)
 N320_CAPS = dict(edge_cap=1024, tri_cap=256)
 # the caps benchmarks/fig2_clustering.py gives each probe
@@ -117,6 +126,8 @@ EX_TOLERANCE = "rtol 1e-6, atol 1e-5; converged and rounds bitwise"
 # lane operations of one row (or column) scan of an M-wide auction: M
 # subtractions and two max passes (the best and the second best)
 AUCTION_SCAN_OPS = 3
+# the fixed rows whose clouds the sharded phases gather
+CLOUD_ROWS_SEED = 23
 
 
 class SmokeFailure(RuntimeError):
@@ -429,6 +440,22 @@ def phase_kernel_checks(dev) -> dict:
                                   f"outputs differ from the plain version, "
                                   f"or a total is outside "
                                   f"{AUCTION_TOTAL_TOLERANCE}")
+    # hamming_scan: W 1..5 words, ragged Q and N, N = 1, bit-31 words,
+    # all-ones and multi-probe masks; a second launch gives the same bits
+    from repro_torch.kernels.hamming import (
+        as_int32_words, hamming_scan_cuda, pack_codes_u32)
+    from repro_torch.metrics.testing import HAMMING_CASES, hamming_operands
+
+    for case in HAMMING_CASES:
+        cq, cd, mq = (as_int32_words(pack_codes_u32(a)).to(dev)
+                      for a in hamming_operands(
+                          np.random.default_rng(sum(case[:3])), *case))
+        check(bool((cd < 0).any()), f"hamming_scan {case}: no bit-31 word")
+        got = hamming_scan_cuda(cq, mq, cd)
+        err = max_abs_err([got], [ref.hamming_scan_ref(cq, mq, cd)])
+        check(torch.equal(got, hamming_scan_cuda(cq, mq, cd)),
+              f"hamming_scan {case}: two launches differ")
+        record("hamming_scan", list(case), err)
     return {"phase": "kernels_check", "cases": len(cases),
             "mismatches": 0, "l1_tolerance": L1_TOLERANCE,
             "sinkhorn_tolerance": SK_TOLERANCE,
@@ -461,7 +488,8 @@ class Recorder:
                  "sinkhorn_pair_sum": lambda xp, yp, *a: (
                      xp.numel() // 3 * yp.shape[-1], a[-1] == "plan"),
                  "auction_lap": lambda cost, *a: cost.numel(),
-                 "auction_lap_collapsed": lambda cbar, *a: cbar.numel()}
+                 "auction_lap_collapsed": lambda cbar, *a: cbar.numel(),
+                 "hamming_scan": lambda q, m, c: q.shape[0] * c.numel()}
 
         def wrap(name, fn, size_of):
             def recorded(*args):
@@ -791,6 +819,151 @@ def phase_index(d64, dev, launches, recorder, n_queries=256, k=10,
         add_ms=_host_ms(lambda: TopoIndex(cfg, device=dev).add(d64), reps=3),
         gram_ms=_host_ms(index.gram))
     return out, (index, index_lsh, dq, k)
+
+
+def _gram_against_one_call(gram, emb, chunk=8192):
+    """``gram`` against ``pairwise_l1(emb, emb)`` built ``chunk`` rows at a
+    time (each entry is its own sum, so a row block gives the same bits):
+    the largest |difference|, whether every entry is within L1_TOLERANCE,
+    and whether all are bitwise equal."""
+    import torch
+    from repro_torch.kernels import ops
+
+    err, ok, same = 0.0, True, True
+    for i in range(0, emb.shape[0], chunk):
+        x = emb[i:i + chunk]
+        want = ops.pairwise_l1(x, emb)
+        diff = (gram[i:i + chunk] - want).abs()
+        err = max(err, float(diff.max()))
+        ok = ok and bool((diff <= l1_tolerance(x, emb)).all())
+        same = same and bool(torch.equal(gram[i:i + chunk], want))
+    return err, ok, same
+
+
+def phase_sharded_index(name, index_lsh, dq, k, meshes, launches, recorder,
+                        index_none=None, host_reps=3) -> tuple[dict, object]:
+    """``index_lsh`` wrapped in a ShardedIndex on each of ``meshes``: one
+    main-path run (LSH query, SUMMA Gram, cloud gather) per mesh, the
+    coarse candidates (probes 1 and 4) bitwise the host scan's, the query
+    ids and distances bitwise ``index_lsh.query``'s, the clouds bitwise
+    ``index_lsh.clouds``', the SUMMA Gram and the SUMMA query Gram within
+    L1_TOLERANCE; and the sharded LSH query's time beside the host scan's.
+    ``index_none``, where given, is the same corpus without the LSH stage:
+    its sharded query goes through the SUMMA Gram and must name the same
+    rows but for near ties.  Returns the record and the first sharded
+    index."""
+    import numpy as np
+    from repro_torch.core.persistence import diagrams_bitwise_equal
+    from repro_torch.index import ShardedIndex
+    from repro_torch.kernels import ops
+
+    cfg = index_lsh.config
+    n = len(index_lsh)
+    emb_q = index_lsh.embed(dq)
+    emb_q_np = emb_q.cpu().numpy()
+    m = k * cfg.lsh_overfetch
+    rows = np.random.default_rng(CLOUD_ROWS_SEED).integers(0, n, (64, k))
+    want = index_lsh.query(dq, k)
+    want_clouds = index_lsh.clouds(rows)
+    e = index_lsh._emb_device
+    q_dist = ops.pairwise_l1(emb_q, e)
+    q_tol = l1_tolerance(emb_q, e)
+    out = {"phase": name, "rows": n, "width": cfg.width,
+           "queries": emb_q.shape[0], "k": k, "lsh_bits": cfg.lsh_bits,
+           "coarse_candidates": m, "l1_tolerance": L1_TOLERANCE,
+           "host_query_lsh_ms": _host_ms(lambda: index_lsh.query(dq, k),
+                                         reps=host_reps),
+           "host_coarse_ms": _host_ms(
+               lambda: index_lsh._coarse_candidates(emb_q_np, m),
+               reps=host_reps),
+           "meshes": []}
+    first = None
+    for mesh in meshes:
+        sharded = ShardedIndex.from_index(index_lsh, mesh=mesh)
+        if first is None:
+            first = sharded
+
+        def run():
+            return sharded.query(dq, k), sharded.gram(), sharded.clouds(rows)
+
+        (got, gram, clouds), counts, first_s = _drive(recorder, name, run)
+        tag = f"{name} mesh {mesh.shape}"
+        check(counts["hamming_scan"] >= mesh.size,
+              f"{tag}: hamming_scan launched {counts['hamming_scan']} times")
+        check(np.array_equal(np.asarray(got.rows), np.asarray(want.rows))
+              and got.ids == want.ids
+              and np.array_equal(got.distances, want.distances),
+              f"{tag}: query answers differ from the single-host index")
+        check(diagrams_bitwise_equal(clouds, want_clouds),
+              f"{tag}: gathered clouds differ")
+        for probes in (1, 4):
+            cand = sharded._coarse_candidates(emb_q_np, m * probes, probes)
+            check(np.array_equal(cand, index_lsh._coarse_candidates(
+                emb_q_np, m * probes, probes)),
+                f"{tag}: probes {probes}: candidates differ from the host "
+                "scan's")
+        gram_err, gram_ok, gram_bitwise = _gram_against_one_call(gram, e)
+        check(gram_ok, f"{tag}: SUMMA Gram outside {L1_TOLERANCE}")
+        del gram
+        g_q = sharded._summa_gram(emb_q)
+        check(bool(((g_q - q_dist).abs() <= q_tol).all()),
+              f"{tag}: SUMMA query Gram outside {L1_TOLERANCE}")
+        rec = {"mesh": mesh.shape, "shards": mesh.size,
+               "first_run_ms": first_s * 1e3,
+               "launches": _add_counts(launches, counts),
+               "candidates_bitwise_equal": True, "query_bitwise_equal": True,
+               "clouds_bitwise_equal": True,
+               "gram_max_abs_err": gram_err, "gram_bitwise_equal":
+               gram_bitwise,
+               "summa_query_max_abs_err": float((g_q - q_dist).abs().max()),
+               "query_lsh_ms": _host_ms(lambda: sharded.query(dq, k)),
+               "coarse_ms": _host_ms(
+                   lambda: sharded._coarse_candidates(emb_q_np, m)),
+               "gram_ms": _host_ms(sharded.gram, reps=2)}
+        del g_q
+        if index_none is not None:
+            dense = ShardedIndex.from_index(index_none, mesh=mesh)
+            got_none = dense.query(dq, k)
+            want_none = index_none.query(dq, k)
+            dist, tol = q_dist.cpu().numpy(), q_tol.cpu().numpy()
+            bad, near = _rank_mismatches(np.asarray(got_none.rows),
+                                         np.asarray(want_none.rows), dist,
+                                         tol)
+            check(bad == 0 and got_none.stats["stage"] == "sharded_gram",
+                  f"{tag}: {bad} SUMMA-query ids differ beyond a near tie")
+            rec["query_none"] = {"near_tie_swaps": near,
+                                 "ms": _host_ms(lambda: dense.query(dq, k))}
+        out["meshes"].append(rec)
+    return out, first
+
+
+def phase_sharded_index_n65536(dev, launches, recorder, n=65536,
+                               n_queries=256, k=10) -> dict:
+    """``phase_sharded_index`` at 65,536 rows on the mesh (1, 1): noisy
+    copies of 64 seed diagrams (1024 each, so codes tie in crowds), at
+    ``index_n64``'s configuration, queried with 256 fresh copies."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.index import TopoIndex, TopoIndexConfig
+    from repro_torch.launch import make_index_mesh
+    from repro_torch.metrics.testing import noisy_copies, seed_diagram_arrays
+
+    rng = np.random.default_rng(65536)
+    seeds = seed_diagram_arrays(rng, 64, 16)
+    corpus = noisy_copies(seeds, rng, n, 0.05, 0.6, device=dev)
+    dq = noisy_copies(seeds, rng, n_queries, 0.05, 0.6, device=dev)
+    cfg = dataclasses.replace(TopoIndexConfig(embedding="both"),
+                              coarse="lsh")
+    index_lsh = TopoIndex(cfg, device=dev)
+    t0 = time.perf_counter()
+    index_lsh.add(corpus)
+    add_s = time.perf_counter() - t0
+    out, _ = phase_sharded_index("sharded_index_n65536", index_lsh, dq, k,
+                                 [make_index_mesh()], launches, recorder,
+                                 host_reps=1)
+    out["add_ms"] = add_s * 1e3
+    return out
 
 
 def kernel_kmeans(kmat, n_clusters: int, seed: int = 0, n_iters: int = 30):
@@ -1483,7 +1656,8 @@ def _profile(name, fn, reps: int = 1) -> dict:
               "pack_rows_kernel", "common_neighbors_tile_kernel",
               "pairwise_l1_kernel", "sinkhorn_lse_kernel",
               "sinkhorn_pair_sum_kernel", "sum_partials_kernel",
-              "auction_lap_kernel", "auction_collapsed_kernel")
+              "auction_lap_kernel", "auction_collapsed_kernel",
+              "hamming_scan_kernel")
     ported_ms = sum(r[0] for r in rows if any(p in r[1] for p in ported))
     check(busy_ms > 0, f"{name}: no device time recorded")
     return {"phase": name, "reps": reps, "wall_ms": wall_ms,
@@ -1511,15 +1685,22 @@ def phase_profile_clustering(g, reps: int = 20) -> dict:
                     lambda: clustering_coefficients(g.adj, g.mask), reps)
 
 
-def phase_profile_index(index, index_lsh, dq, k) -> dict:
+def phase_profile_index(index, index_lsh, dq, k, sharded) -> dict:
     """``_profile`` of the index's steady work: the Gram and one batch of
-    queries without and with the LSH stage."""
+    queries without and with the LSH stage; then, alone, one LSH batch
+    through the single-host index (host scan) and through ``sharded`` (the
+    ShardedIndex over the same rows: the scan on the card)."""
     def run():
         index.gram()
         index.query(dq, k)
         index_lsh.query(dq, k)
 
-    return _profile("profile_index_n64", run)
+    out = _profile("profile_index_n64", run)
+    out["host_lsh_query"] = _profile("profile_host_lsh_query_n64",
+                                     lambda: index_lsh.query(dq, k))
+    out["sharded_lsh_query"] = _profile("profile_sharded_lsh_query_n64",
+                                        lambda: sharded.query(dq, k), reps=5)
+    return out
 
 
 def phase_profile_sinkhorn(d1, d2) -> dict:
@@ -1674,6 +1855,56 @@ def _time_pairwise_l1(x, y) -> dict:
             "bound_ms": bt, "bound_by": by}
 
 
+def _time_hamming(codes_q, mask_q, codes_db) -> dict:
+    """Kernel, plain version, and a byte-table lookup in one expression as
+    the library yardstick (torch has no popcount).  The bound is the
+    largest of the bytes (each word in once, the int32 output out once),
+    3 lane instructions (XOR, AND, add) and one popcount per (i, j, w)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.hamming import hamming_scan_cuda
+
+    (q, w), n = codes_q.shape, codes_db.shape[0]
+    table = torch.tensor([bin(i).count("1") for i in range(256)],
+                         dtype=torch.uint8, device=codes_q.device)
+
+    def library():
+        x = (codes_q[:, None, :] ^ codes_db[None]) & mask_q[:, None, :]
+        return table[x.view(torch.uint8).int()].sum(-1, dtype=torch.int32)
+
+    want = ref.hamming_scan_ref(codes_q, mask_q, codes_db)
+    got = hamming_scan_cuda(codes_q, mask_q, codes_db)
+    check(torch.equal(library(), want), "hamming_scan: the byte-table "
+                                        "yardstick disagrees")
+    bt, by = bound(4.0 * (2 * q * w + n * w + q * n), 3.0 * q * n * w,
+                   float(q * n * w))
+    return {"name": "hamming_scan", "shape": [q, n, w],
+            "max_abs_err": max_abs_err([got], [want]),
+            "ms": cuda_ms(lambda: hamming_scan_cuda(codes_q, mask_q,
+                                                    codes_db)),
+            "plain_ms": cuda_ms(lambda: ref.hamming_scan_ref(
+                codes_q, mask_q, codes_db), reps=3),
+            "library_ms": cuda_ms(library, reps=3),
+            "library": "byte-table lookup (torch has no popcount)",
+            "bound_ms": bt, "bound_by": by}
+
+
+def phase_hamming_large(dev, q=256, n=262144, nbytes=16) -> dict:
+    """``_time_hamming`` at 256 queries of 128 bits against 262,144 rows:
+    the int32 output alone is 268 MB."""
+    import numpy as np
+    from repro_torch.kernels.hamming import as_int32_words, pack_codes_u32
+    from repro_torch.metrics.testing import hamming_operands
+
+    cq, cd, mq = (as_int32_words(pack_codes_u32(a)).to(dev)
+                  for a in hamming_operands(np.random.default_rng(7), q, n,
+                                            nbytes, "probe"))
+    row = _time_hamming(cq, mq, cd)
+    check(row["max_abs_err"] == 0, "hamming_scan (large): kernel disagrees "
+                                   "with its plain version")
+    return {"phase": "hamming_large", **row}
+
+
 def _time_sinkhorn_lse(xp, yp, dual, logw, e_t) -> dict:
     """Kernel, plain version, and torch.logsumexp over the materialized
     exponents (cost build included).  The bound counts SK_LSE_WORK for every
@@ -1816,14 +2047,18 @@ TIMERS = {"kcore_peel": _time_kcore, "domination": _time_domination,
           "sinkhorn_lse": _time_sinkhorn_lse,
           "sinkhorn_pair_sum": _time_sinkhorn_pair_sum,
           "auction_lap": _time_auction_lap,
-          "auction_lap_collapsed": _time_auction_collapsed}
+          "auction_lap_collapsed": _time_auction_collapsed,
+          "hamming_scan": _time_hamming}
 
 
-def kernel_rows(recorder, phase) -> list[dict]:
-    """Each kernel at its largest input in ``phase``: error against the
-    plain version, kernel / plain / library times, and the bound."""
+def kernel_rows(recorder, phase, only=None) -> list[dict]:
+    """Each kernel (of ``only``, default all) at its largest input in
+    ``phase``: error against the plain version, kernel / plain / library
+    times, and the bound."""
     rows = []
     for name, timer in TIMERS.items():
+        if only is not None and name not in only:
+            continue
         recorded = recorder.inputs.get((phase, name))
         if recorded is None:
             continue
@@ -1868,6 +2103,8 @@ def main() -> int:
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import make_index_mesh
+
     dev = torch.device("cuda")
     launches = {k: 0 for k in REPLACES}
     t_start = time.perf_counter()
@@ -1893,6 +2130,13 @@ def main() -> int:
             emit(phase_clustering_twitter(dev, launches, recorder))
             record, index_run = phase_index(d64, dev, launches, recorder)
             emit(record)
+            index, index_lsh, dq, k = index_run
+            record, sharded = phase_sharded_index(
+                "sharded_index_n64", index_lsh, dq, k,
+                [make_index_mesh(), make_index_mesh(devices=[dev] * 4)],
+                launches, recorder, index_none=index)
+            emit(record)
+            emit(phase_sharded_index_n65536(dev, launches, recorder))
             emit(phase_fig2(dev, launches, recorder))
             emit(phase_sinkhorn_n64(d64, launches, recorder))
             record, sk_pairs = phase_sinkhorn_full_n320(d320, launches,
@@ -1910,15 +2154,22 @@ def main() -> int:
         rows = contract_rows(
             [r for ph in ("signature_n64", "clustering_n64", "index_n64",
                           "sinkhorn_full_n320", "exact_n320")
-             for r in kernel_rows(recorder, ph)], launches)
-        emit({"phase": "kernel_times", "at": {
-            ph: kernel_rows(recorder, ph)
-            for ph in ("signature_n320", "table1_n1024", "clustering_n1024",
-                       "clustering_twitter", "fig2", "sinkhorn_n64",
-                       "sinkhorn_parity", "exact_n64")}})
+             for r in kernel_rows(recorder, ph)]
+            + kernel_rows(recorder, "sharded_index_n64",
+                          only=("hamming_scan",)), launches)
+        at = {ph: kernel_rows(recorder, ph)
+              for ph in ("signature_n320", "table1_n1024", "clustering_n1024",
+                         "clustering_twitter", "fig2", "sinkhorn_n64",
+                         "sinkhorn_parity", "exact_n64")}
+        # the 65,536-row Gram is index_n64's 256-fold: its plain version
+        # and cdist would take minutes, so only the scan is timed there
+        at["sharded_index_n65536"] = kernel_rows(
+            recorder, "sharded_index_n65536", only=("hamming_scan",))
+        emit({"phase": "kernel_times", "at": at})
+        emit(phase_hamming_large(dev))
         emit(phase_profile(n64, N64_CAPS))
         emit(phase_profile_clustering(n64))
-        emit(phase_profile_index(*index_run))
+        emit(phase_profile_index(*index_run, sharded))
         emit(phase_profile_sinkhorn(*sk_pairs))
         emit(phase_profile_exact(*ex_pairs))
         card = card_line()

@@ -1,5 +1,5 @@
 """Plain integer counters: kernel launches, host-driven loop rounds,
-MetricEngine calls and price-cache warm starts.
+MetricEngine calls, price-cache warm starts and ShardedIndex scans.
 
 ``KERNEL_LAUNCHES[name]`` grows by one each time a wrapper in
 :mod:`repro_torch.kernels.ops` launches its CUDA kernel, and never on the
@@ -13,6 +13,11 @@ warm-start vector (``"warm_start_hits"``) or fell back to a cold start
 entry points (``entry`` is ``"compare"``, ``"compare_info"`` or
 ``"pairwise"``; a ``pairwise`` call also counts the ``compare`` calls it
 makes).
+``INDEX[(name, kind)]`` counts ShardedIndex's device-side work by ``kind``
+(``"hamming"`` for a coarse scan, ``"summa"`` for a SUMMA Gram):
+``"sharded_scans"`` the calls, ``"sharded_rows"`` the (query, corpus row)
+pairs they covered (``repro``'s ``index.sharded_scans`` and
+``index.sharded_rows``).
 """
 from __future__ import annotations
 
@@ -22,10 +27,12 @@ KERNEL_LAUNCHES: dict[str, int] = {"kcore_peel": 0, "domination": 0,
                                    "gf2_reduce": 0, "common_neighbors": 0,
                                    "pairwise_l1": 0, "sinkhorn_lse": 0,
                                    "sinkhorn_pair_sum": 0, "auction_lap": 0,
-                                   "auction_lap_collapsed": 0}
+                                   "auction_lap_collapsed": 0,
+                                   "hamming_scan": 0}
 LOOP_ROUNDS: dict[str, int] = {"prune_rounds": 0, "fixpoint_sweeps": 0}
 METRIC_CALLS: Counter[tuple[str, str]] = Counter()
 AUCTION: Counter[tuple[str, str]] = Counter()
+INDEX: Counter[tuple[str, str]] = Counter()
 
 
 def reset() -> None:
@@ -35,6 +42,7 @@ def reset() -> None:
             d[k] = 0
     METRIC_CALLS.clear()
     AUCTION.clear()
+    INDEX.clear()
 
 
 def snapshot() -> dict[str, int]:

@@ -1,6 +1,8 @@
 """TopoIndex: a retrieve -> re-rank persistence-diagram similarity index
-over sliced-Wasserstein / feature embeddings (single host; the mesh-sharded
-flavour comes in a later slice of the port)."""
+over sliced-Wasserstein / feature embeddings, single host
+(:class:`TopoIndex`) or with its row stores and coarse scan sharded over an
+index mesh in one process (:class:`ShardedIndex`)."""
+from repro_torch.index.sharded_index import ShardedIndex
 from repro_torch.index.topo_index import (
     QueryResult,
     TopoIndex,
@@ -8,5 +10,5 @@ from repro_torch.index.topo_index import (
     clouds_to_diagrams,
 )
 
-__all__ = ["QueryResult", "TopoIndex", "TopoIndexConfig",
+__all__ = ["QueryResult", "ShardedIndex", "TopoIndex", "TopoIndexConfig",
            "clouds_to_diagrams"]

@@ -21,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("kcore_peel", "domination", "gf2_reduce", "common_neighbors",
-           "pairwise_l1", "sinkhorn_lse", "auction_lap")
+           "pairwise_l1", "sinkhorn_lse", "auction_lap", "hamming")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

@@ -8,9 +8,11 @@ one to the other.  Each launch adds one to
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch import counters
+from repro_torch._device import resolve_device
 from repro_torch.kernels import ref
 from repro_torch.kernels.auction_lap import (
     DEFAULT_EPS0, DEFAULT_EPS_FACTOR, auction_lap_collapsed_cuda,
@@ -18,6 +20,8 @@ from repro_torch.kernels.auction_lap import (
 from repro_torch.kernels.common_neighbors import common_neighbors_cuda
 from repro_torch.kernels.domination import domination_cuda
 from repro_torch.kernels.gf2_reduce import MAX_BLOCKS, gf2_reduce_cuda
+from repro_torch.kernels.hamming import (
+    as_int32_words, hamming_scan_cuda, pack_codes_u32)
 from repro_torch.kernels.kcore_peel import kcore_peel_cuda
 from repro_torch.kernels.pairwise_gram import pairwise_l1_cuda
 from repro_torch.kernels.sinkhorn_lse import (
@@ -178,6 +182,54 @@ def pairwise_l1(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
             counters.KERNEL_LAUNCHES["pairwise_l1"] += 1
         return out
     return ref.pairwise_l1_ref(x, y)
+
+
+def _code_words(codes, device: torch.device) -> torch.Tensor:
+    """Packed codes as (B, W) int32 words: a tensor of uint32 or int32 words
+    as it is; a numpy array of uint8 packed bytes (the TopoIndex storage
+    layout, zero-padded to whole words), uint32 or int32 words on
+    ``device``."""
+    if isinstance(codes, torch.Tensor):
+        return as_int32_words(codes)
+    codes = np.asarray(codes)
+    if codes.dtype == np.uint8:
+        codes = pack_codes_u32(codes)
+    return as_int32_words(codes).to(device)
+
+
+def hamming_scan(codes_q, codes_db, mask_q=None,
+                 device=None) -> torch.Tensor:
+    """(Q, N) int32 masked Hamming distances over packed LSH codes.
+
+    Codes come as numpy uint8 packed bytes (the TopoIndex storage layout),
+    or as uint32 words or int32 bit patterns, numpy or torch.  ``mask_q`` (packed like ``codes_q``) clears query
+    bits from the distance, the multi-probe LSH trick; ``None`` means all
+    ones.  Tensors keep their device; numpy inputs go to ``device``, which
+    defaults to the device of a tensor argument, else to CUDA.
+    """
+    if device is not None:
+        dev = torch.device(device)
+    else:
+        given = [a for a in (codes_q, codes_db, mask_q)
+                 if isinstance(a, torch.Tensor)]
+        dev = given[0].device if given else resolve_device(None)
+    cq = _code_words(codes_q, dev)
+    cd = _code_words(codes_db, dev)
+    mq = (torch.full(cq.shape, -1, dtype=torch.int32, device=dev)
+          if mask_q is None else _code_words(mask_q, dev))
+    if cq.dim() != 2 or cd.dim() != 2 or cq.shape[1] != cd.shape[1]:
+        raise ValueError(f"hamming_scan: want (Q, W) and (N, W) codes, got "
+                         f"{tuple(cq.shape)} and {tuple(cd.shape)}")
+    (q, w), n = cq.shape, cd.shape[0]
+    _check("hamming_scan codes_q", cq, torch.int32, (q, w), dev)
+    _check("hamming_scan mask_q", mq, torch.int32, (q, w), dev)
+    _check("hamming_scan codes_db", cd, torch.int32, (n, w), dev)
+    if _route(dev, "hamming_scan"):
+        out = hamming_scan_cuda(cq, mq, cd)
+        if q and n:
+            counters.KERNEL_LAUNCHES["hamming_scan"] += 1
+        return out
+    return ref.hamming_scan_ref(cq, mq, cd)
 
 
 def _check_planes(name, xp, yp, *, rows, cols, e_t):

@@ -75,6 +75,35 @@ def pairwise_l1_ref(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# words of the (rows, N, W) broadcast that hamming_scan_ref materializes at
+# a time (64 MiB of int32, and 256 MiB of int32 byte indices)
+HAMMING_CHUNK = 1 << 24
+# byte -> set-bit count: torch has no popcount
+_POPCOUNT8 = [bin(i).count("1") for i in range(256)]
+
+
+def hamming_scan_ref(codes_q: torch.Tensor, mask_q: torch.Tensor,
+                     codes_db: torch.Tensor) -> torch.Tensor:
+    """dist[i, j] = popcount((q[i] ^ c[j]) & mask[i]), summed over words.
+
+    (Q, W) query codes and masks and (N, W) corpus codes, int32 bit
+    patterns -> (Q, N) int32.  XOR and AND on the int32 words, then a
+    256-entry byte table looked up on the bytes of the result; the broadcast
+    is materialized ``HAMMING_CHUNK`` words at a time.
+    """
+    nq, w = codes_q.shape
+    n = codes_db.shape[0]
+    table = torch.tensor(_POPCOUNT8, dtype=torch.uint8, device=codes_q.device)
+    out = torch.empty((nq, n), dtype=torch.int32, device=codes_q.device)
+    rows = max(1, HAMMING_CHUNK // max(n * w, 1))
+    for i in range(0, nq, rows):
+        x = (codes_q[i:i + rows, None, :] ^ codes_db[None]) \
+            & mask_q[i:i + rows, None, :]
+        out[i:i + rows] = table[x.view(torch.uint8).int()].sum(
+            -1, dtype=torch.int32)
+    return out
+
+
 def low(cols: torch.Tensor) -> torch.Tensor:
     """(G, W) int32 packed columns -> (G,) int64 highest set row, or -1."""
     w = cols.shape[-1]

@@ -1,6 +1,6 @@
 """Synthetic Diagrams generators for tests and checks (the port of
-``repro.metrics.testing``), and seeded operands for the Sinkhorn and
-auction kernels.
+``repro.metrics.testing``), and seeded operands for the Sinkhorn, auction
+and Hamming kernels.
 
 Every draw comes from a numpy ``Generator`` in the same order as in
 ``repro``, so the same ``rng`` gives the same arrays in both packages: NaN
@@ -270,3 +270,36 @@ def auction_agreement(got, want, cost) -> tuple[int, float, bool]:
     err = (got[1].cpu() - want[1].cpu()).abs()
     ok = bool((err <= m * 2.0 ** -23 * mag + 1e-30).all())
     return differ, float(err.max()) if err.numel() else 0.0, ok
+
+
+# (Q, N, code bytes, mask) for the Hamming kernel checks: W = 1..5 words
+# (byte counts short of a whole word are zero-padded), N = 1, Q and N off
+# the multiples of 8 and 128, all-ones masks and multi-probe masks; the last
+# is the index's 256 queries of 128 bits against 4096 rows
+HAMMING_CASES = ((1, 1, 4, "ones"), (3, 1, 7, "probe"), (7, 129, 12, "probe"),
+                 (13, 300, 16, "ones"), (9, 257, 20, "probe"),
+                 (20, 1000, 10, "probe"), (256, 4096, 16, "probe"))
+
+
+def hamming_operands(rng: np.random.Generator, q: int, n: int, nbytes: int,
+                     mask: str) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """uint8 packed codes ``(Q, nbytes)`` and ``(N, nbytes)`` and the query
+    mask ``(Q, nbytes)``: uniform random bytes (so about half the words
+    have bit 31 set), the first corpus rows copies of the queries (distance
+    0) or their complements; the mask all ones (``"ones"``) or, per query,
+    1 to 3 random bits cleared (``"probe"``, the multi-probe masks).  The
+    first query's first word has bit 31 set (the top bit of byte 3).
+    """
+    codes_q = rng.integers(0, 256, (q, nbytes), dtype=np.uint8)
+    if nbytes >= 4:
+        codes_q[0, 3] |= 0x80
+    codes_db = rng.integers(0, 256, (n, nbytes), dtype=np.uint8)
+    k = min(q, n)
+    codes_db[:k] = codes_q[:k]
+    codes_db[k:2 * k] = ~codes_q[:min(k, n - k)]
+    keep = np.ones((q, nbytes * 8), bool)
+    if mask == "probe":
+        for i in range(q):
+            t = int(rng.integers(1, 4))
+            keep[i, rng.choice(nbytes * 8, t, replace=False)] = False
+    return codes_q, codes_db, np.packbits(keep, axis=-1)

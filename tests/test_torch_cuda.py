@@ -17,7 +17,8 @@ has it, and two launches on the same inputs must agree bitwise.
 The auction kernels run the plain solvers' float operations round for
 round, so assignments, prices, round counts and convergence flags are held
 bitwise; the totals, f32 sums of the same terms in another order, within
-``metrics.testing.AUCTION_TOTAL_TOLERANCE``.  ``exact_w`` on the card is
+``metrics.testing.AUCTION_TOTAL_TOLERANCE``.  The Hamming kernel and the
+ShardedIndex's candidates, ids, distances and clouds are held bitwise.  ``exact_w`` on the card is
 held against the CPU port within rtol 1e-6, atol 1e-5: the expanded totals
 are f32 sums in another order, the collapsed W^q float64 sums in another
 order rounded once, and a square root of a total near 0 magnifies an ulp.
@@ -34,8 +35,10 @@ from repro_torch.kernels.kcore_peel import kcore_peel_cuda
 from repro_torch.kernels.pairwise_gram import pairwise_l1_cuda
 from repro_torch.kernels.sinkhorn_lse import (
     sinkhorn_lse_cuda, sinkhorn_pair_sum_cuda)
+from repro_torch.kernels.hamming import hamming_scan_cuda
 from repro_torch.metrics.testing import (
-    AUCTION_CASES, SINKHORN_CASES, auction_operands, sinkhorn_operands)
+    AUCTION_CASES, HAMMING_CASES, SINKHORN_CASES, auction_operands,
+    hamming_operands, sinkhorn_operands)
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -333,3 +336,78 @@ def test_bottleneck_and_self_distance_on_the_card(cuda):
     for collapse in ("on", "off"):
         self_ = compare(d1, d1, metric="exact_w", collapse=collapse)
         assert torch.equal(self_, torch.zeros_like(self_))
+
+
+def _hamming_words(case, device):
+    from repro_torch.kernels.hamming import as_int32_words, pack_codes_u32
+
+    arrays = hamming_operands(np.random.default_rng(sum(case[:3])), *case)
+    return [as_int32_words(pack_codes_u32(a)).to(device) for a in arrays]
+
+
+@pytest.mark.parametrize("case", HAMMING_CASES + ((256, 262144, 16, "probe"),),
+                         ids=lambda c: "q{}_n{}_b{}_{}".format(*c))
+def test_hamming_scan_kernel(cuda, case):
+    cq, cd, mq = _hamming_words(case, cuda)
+    got = hamming_scan_cuda(cq, mq, cd)
+    assert torch.equal(got, ref.hamming_scan_ref(cq, mq, cd))
+    assert torch.equal(hamming_scan_cuda(cq, mq, cd), got)
+
+
+def test_hamming_wrapper_launches_and_counts(cuda):
+    from repro_torch import counters
+
+    cq, cd, mq = _hamming_words(HAMMING_CASES[2], cuda)
+    counters.reset()
+    got = ops.hamming_scan(cq, cd, mq)
+    assert counters.snapshot()["hamming_scan"] == 1
+    assert torch.equal(got.cpu(), ops.hamming_scan(cq.cpu(), cd.cpu(),
+                                                   mq.cpu()))
+    assert ops.hamming_scan(cq[:0], cd).shape == (0, cd.shape[0])
+    assert counters.snapshot()["hamming_scan"] == 1  # nothing to launch
+
+
+@pytest.mark.parametrize("coarse", ["lsh", "none"])
+def test_sharded_index_on_the_card_matches_the_cpu(cuda, coarse):
+    """A 2-shard mesh on the card over the CPU port's stored embeddings:
+    coarse candidates bitwise the CPU host scan's on the same query
+    embeddings, query answers bitwise the card's single-host index's, clouds
+    bitwise, and the SUMMA Gram within the pairwise-L1 tolerance."""
+    from repro_torch import counters
+    from repro_torch.core.persistence import Diagrams, diagrams_bitwise_equal
+    from repro_torch.index import ShardedIndex, TopoIndex, TopoIndexConfig
+    from repro_torch.launch import make_index_mesh
+    from repro_torch.metrics.testing import noisy_copies, seed_diagram_arrays
+
+    rng = np.random.default_rng(11)
+    d = noisy_copies(seed_diagram_arrays(rng, 6, 16), rng, 97, 0.05, 0.6,
+                     device="cpu")
+    cfg = TopoIndexConfig(embedding="sw", n_points=8, n_dirs=8,
+                          coarse=coarse, lsh_bits=64, lsh_overfetch=4)
+    cpu = TopoIndex(cfg, device="cpu")
+    cpu.add(d)
+    card = TopoIndex(cfg, device=cuda)
+    card._emb, card._ids, card._clouds = cpu._emb, cpu._ids, cpu._clouds
+    card._codes = cpu._codes
+    card._emb_device = torch.from_numpy(cpu._emb).to(cuda)
+    sharded = ShardedIndex.from_index(
+        card, mesh=make_index_mesh(devices=[cuda, cuda]))
+    q = Diagrams(*(getattr(d, k)[:7] for k in ("birth", "death", "dim",
+                                               "valid"))).to(cuda)
+    counters.reset()
+    got, want = sharded.query(q, k=5), card.query(q, k=5)
+    if coarse == "lsh":
+        assert counters.snapshot()["hamming_scan"] == 2  # one per shard
+        assert got.ids == want.ids
+        np.testing.assert_array_equal(got.distances, want.distances)
+        emb_q = cpu.embed(q.to("cpu")).numpy()
+        for m in (5, 20, 96):
+            np.testing.assert_array_equal(
+                sharded._coarse_candidates(emb_q, m),
+                cpu._coarse_candidates(emb_q, m))
+    else:
+        assert got.stats["stage"] == "sharded_gram"
+    e = torch.from_numpy(cpu._emb).to(cuda)
+    assert _l1_ok(sharded.gram(), e, e)
+    rows = np.array([[0, 96, 50], [3, 3, 48]])
+    assert diagrams_bitwise_equal(sharded.clouds(rows), cpu.clouds(rows))
