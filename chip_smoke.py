@@ -109,9 +109,10 @@ SK_FULL = dict(metric="sinkhorn", impl="blocked", n_points=None, n_iters=15,
 # needs each pair once: the cost (2 FADD, 2 FMUL, FADD, FSETP, FSEL) 7, z
 # (the subtraction, the IEEE division 6 + MUFU.RCP, the add) 8 + RCP, the
 # running maximum 1, the shift by it 1, the NaN test 1, expf (5 FFMA/FADD,
-# SHF, FMUL) 7 + MUFU.EX2 and the add 1: 26 + 2.  The kernel does more
-# (its second pass builds the cost and divides again, 41 + 3), which the
-# bound does not count.
+# SHF, FMUL) 7 + MUFU.EX2 and the add 1: 26 + 2.  The kernel keeps each
+# chunk's z in registers, so its second pass is only the shift, the NaN
+# test, expf and the add; per chunk of 16 columns it also merges its running
+# (max, sum) (two more expf), which the bound does not count.
 SK_LSE_WORK = (26, 2)
 # the pair sum needs each pair of nonzero weight once: the cost 7, z 11
 # (f + g, la + lb, the subtraction, the division 6 + RCP, the add), expf
@@ -240,13 +241,33 @@ def n1024_batch(device, batch=16, seed=13, sat_frac=0.55):
 
 # --------------------------------------------------------------- phases
 
+def _demangle(names):
+    """C++ names of mangled kernel symbols (c++filt), or the symbols."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60,
+                             check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        return list(names)
+    return out if len(out) == len(names) else list(names)
+
+
 def phase_build() -> dict:
+    """Build every source (one nvcc each, in parallel) and report ptxas's
+    registers, static shared memory and spill bytes for every kernel."""
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
     per_source = _build.build()
-    return {"phase": "build", "seconds": time.perf_counter() - t0,
-            "per_source_seconds": per_source}
+    seconds = time.perf_counter() - t0
+    ptxas = {}
+    for name in _build.SOURCES:
+        report = _build.ptxas_report(name)
+        for full, info in zip(_demangle(list(report)), report.values()):
+            full = full.replace("(anonymous namespace)::", "")
+            ptxas[full.removeprefix("void ").split("(")[0]] = info
+    return {"phase": "build", "seconds": seconds,
+            "per_source_seconds": per_source, "ptxas": ptxas}
 
 
 def _random_graphs(b, n, p, seed, device):
@@ -387,7 +408,7 @@ def phase_kernel_checks(dev) -> dict:
     # sinkhorn_lse and sinkhorn_pair_sum in both modes; a second launch on
     # the same inputs must give the same bits
     from repro_torch.kernels.sinkhorn_lse import (
-        sinkhorn_lse_cuda, sinkhorn_pair_sum_cuda)
+        pack_columns, sinkhorn_lse_cuda, sinkhorn_pair_sum_cuda)
     from repro_torch.metrics.testing import SINKHORN_CASES, sinkhorn_operands
 
     def sk_record(name, shape, got, again, want):
@@ -403,8 +424,11 @@ def phase_kernel_checks(dev) -> dict:
         xp, yp, f, g, la, lb, e_t = (t[k] for k in (
             "xp", "yp", "f", "g", "log_a", "log_b", "e_t"))
         got = sinkhorn_lse_cuda(xp, yp, g, lb, e_t)
+        # a second launch from a pack made by the caller, as the main path
+        # makes it once per side and call: the same bits
         sk_record("sinkhorn_lse", [b, m, n, v0], got,
-                  sinkhorn_lse_cuda(xp, yp, g, lb, e_t),
+                  sinkhorn_lse_cuda(xp, yp, g, lb, e_t,
+                                    pack_columns(yp, lb)),
                   ref.sinkhorn_lse_ref(xp, yp, g, lb, e_t))
         check(v0 or bool(torch.isneginf(got[0]).all()),
               "sinkhorn_lse: a row with no valid column is not -inf")
@@ -1905,19 +1929,25 @@ def phase_hamming_large(dev, q=256, n=262144, nbytes=16) -> dict:
     return {"phase": "hamming_large", **row}
 
 
-def _time_sinkhorn_lse(xp, yp, dual, logw, e_t) -> dict:
-    """Kernel, plain version, and torch.logsumexp over the materialized
-    exponents (cost build included).  The bound counts SK_LSE_WORK for every
-    row and column of nonzero weight (the others add nothing), and the bytes
-    the function needs: every row's planes and output, every log weight,
-    and the planes and dual of the columns of nonzero weight."""
+def _time_sinkhorn_lse(xp, yp, dual, logw, e_t, packed=None) -> dict:
+    """Kernel (from the main path's pack of the weighted columns, made once
+    per side and call, which ``pack_ms`` times apart), plain version, and
+    torch.logsumexp over the materialized exponents (cost build included).
+    The bound counts SK_LSE_WORK for every row and column of nonzero weight
+    (the others add nothing), and the bytes the function needs: every row's
+    planes and output, every log weight, and the planes and dual of the
+    columns of nonzero weight."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.sinkhorn_lse import sinkhorn_lse_cuda
+    from repro_torch.kernels.sinkhorn_lse import (
+        pack_columns, sinkhorn_lse_cuda)
 
     (b, _, m), n = xp.shape, yp.shape[-1]
-    err, ok = sinkhorn_error(sinkhorn_lse_cuda(xp, yp, dual, logw, e_t),
-                             ref.sinkhorn_lse_ref(xp, yp, dual, logw, e_t))
+    if packed is None:
+        packed = pack_columns(yp, logw)
+    args = (xp, yp, dual, logw, e_t)
+    err, ok = sinkhorn_error(sinkhorn_lse_cuda(*args, packed),
+                             ref.sinkhorn_lse_ref(*args))
 
     def library():
         c = ref.sinkhorn_cost(xp, yp)
@@ -1932,9 +1962,9 @@ def _time_sinkhorn_lse(xp, yp, dual, logw, e_t) -> dict:
     return {"name": "sinkhorn_lse", "shape": [b, m, n],
             "visited_pairs": visited, "max_abs_err": err,
             "tolerance": SK_TOLERANCE, "within_tolerance": ok,
-            "ms": cuda_ms(lambda: sinkhorn_lse_cuda(xp, yp, dual, logw, e_t)),
-            "plain_ms": cuda_ms(lambda: ref.sinkhorn_lse_ref(
-                xp, yp, dual, logw, e_t), reps=3),
+            "ms": cuda_ms(lambda: sinkhorn_lse_cuda(*args, packed)),
+            "pack_ms": cuda_ms(lambda: pack_columns(yp, logw)),
+            "plain_ms": cuda_ms(lambda: ref.sinkhorn_lse_ref(*args), reps=3),
             "library_ms": cuda_ms(library, reps=3), "bound_ms": bt,
             "bound_by": by}
 

@@ -18,46 +18,50 @@
 //   column of nonzero weight) pair, one cost, one IEEE division and one
 //   accurate expf: about 26 f32/integer lane instructions and 2 MUFU
 //   operations (a reciprocal seed, an ex2), against 20 bytes per column.
-//   This LSE kernel builds the cost and divides a second time in its
-//   second pass (41 lane instructions and 3 MUFU operations in the SASS
-//   nvcc 12.8 emits) rather than keep z.  Columns of weight 0 (and, in the
-//   pair sum, rows of weight 0) add nothing and are left out, so the work
-//   is (rows x weighted columns) for the LSE and (weighted rows x weighted
-//   columns) for the pair sum, which on the full diagram tensor (mostly
-//   padding slots) is a small share of M x N.
+//   Columns of weight 0 (and, in the pair sum, rows of weight 0) add nothing
+//   and are left out, so the work is (rows x weighted columns) for the LSE
+//   and (weighted rows x weighted columns) for the pair sum, which on the
+//   full diagram tensor (mostly padding slots) is a small share of M x N.
 //
-// Design: one thread per output row, flash-attention style.  A CTA of
-//   kRows threads walks the y side in tiles of kCols columns; each tile's
-//   birth, death, flag, dual and log weight (2.5 KB) is staged in shared
-//   memory and read by every thread as a broadcast.  Staging keeps only the
-//   tile's columns of nonzero weight, packed in column order (warp ballots
-//   and a prefix over the CTA's four warps), so every thread loops over the
-//   same packed columns and the sums keep the column order: a column of log
-//   weight -inf has z = -inf and moves neither the maximum nor the sum, so
-//   leaving it out changes no bit.  Per tile a thread makes
-//   two passes over its row: the block maximum of z, then the sum of
-//   exp(z - max) with the cost recomputed (recomputing five instructions
-//   is cheaper than keeping 128 z values), the same block algebra as the TPU
-//   kernel's _lse_kernel.  When the cloud fits one tile this is exactly
-//   repro's dense m + log(sum exp(z - m)).  Exponents of -inf - (-inf)
-//   count as exp(-inf) = 0, as repro's _safe_exp does.  The cost and z are
-//   formed with explicit round-to-nearest intrinsics: no fused multiply-add
-//   contraction and a true division, so each z is bitwise the z of the
-//   plain PyTorch version (one ulp of z at the last eps stage is ~1e-4
-//   relative after exp).  Columns past N count as columns of weight 0; the
-//   host pads nothing.  The pair sum keeps a per-thread sum over its row in column
-//   order, reduces the CTA's rows in a fixed tree into partial[b, cta], and
-//   a second kernel sums each batch item's partials in order: no float
-//   atomics, so equal inputs give equal bits from run to run, which the
-//   Sinkhorn divergence needs for a self-distance of exactly 0.
-//   The grid is (B, ceil(M / kRows)), so a wide batch fills the SMs.
+// sinkhorn_lse: one thread per output row, in CTAs of kRows.  The caller
+//   packs each batch item's columns of log weight other than -inf once, in
+//   column order (kernels/sinkhorn_lse.py::pack_columns: their indices, their
+//   count, their planes and log weights), and keeps the pack for every
+//   launch with the same log weights: a Sinkhorn call passes the same log_a
+//   and log_b to all of its half-updates.  A CTA stages up to kStage packed
+//   columns at once (their planes, log weights, and the dual gathered
+//   through the indices; one pass and one barrier for a diagram cloud of
+//   the DD rung, ~92 columns), every thread reading them as broadcasts.
+//   Each thread then walks the staged columns in chunks of kChunk: it forms
+//   the chunk's z values once, keeps them in registers, takes their maximum,
+//   sums exp(z - max) in column order, and merges (max, shifted sum) into
+//   its running pair, the block algebra of the TPU kernel's _lse_kernel.  A
+//   column of log weight -inf has z = -inf and moves neither the maximum nor
+//   the sum, so leaving it out changes no bit; columns past the count are
+//   never read.  Exponents of -inf - (-inf) count as exp(-inf) = 0, as
+//   repro's _safe_exp does.  The cost and z are formed with explicit
+//   round-to-nearest intrinsics: no fused multiply-add contraction and a true
+//   division, so each z is bitwise the z of the plain PyTorch version (one
+//   ulp of z at the last eps stage is ~1e-4 relative after exp).  No
+//   atomics: equal inputs give equal bits.
+// sinkhorn_pair_sum: a CTA of kRows rows walks the y side in tiles of kCols
+//   columns, staging each tile's columns of nonzero weight, packed in column
+//   order (warp ballots and a prefix over the CTA's four warps).  It keeps a
+//   per-thread sum over its row in column order, reduces the CTA's rows in a
+//   fixed tree into partial[b, cta], and a second kernel sums each batch
+//   item's partials in order: no float atomics, so equal inputs give equal
+//   bits from run to run, which the Sinkhorn divergence needs for a
+//   self-distance of exactly 0.
+// The grid is (B, ceil(M / kRows)), so a wide batch fills the SMs.
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
 constexpr int kRows = 128;  // threads per CTA, one output row each
-constexpr int kCols = 128;  // y columns staged per tile, one per thread
+constexpr int kCols = 128;  // pair sum: y columns staged per tile
+constexpr int kStage = 512;  // LSE: packed columns staged at once
+constexpr int kChunk = 16;   // LSE: z values a thread keeps in registers
 constexpr int kWarps = kRows / 32;
 static_assert(kRows == kCols, "each thread stages one column of a tile");
 
@@ -92,21 +96,23 @@ __device__ __forceinline__ float safe_exp(float t) {
 }
 
 __global__ void __launch_bounds__(kRows)
-sinkhorn_lse_kernel(const float* __restrict__ xp, const float* __restrict__ yp,
+sinkhorn_lse_kernel(const float* __restrict__ xp, const float* __restrict__ yq,
+                    const int* __restrict__ idx, const int* __restrict__ count,
                     const float* __restrict__ dual,
-                    const float* __restrict__ logw,
+                    const float* __restrict__ lwq,
                     const float* __restrict__ e_t, float* __restrict__ out,
                     int m, int n) {
-  __shared__ float s_yb[kCols], s_yd[kCols], s_yf[kCols], s_dual[kCols],
-      s_logw[kCols];
-  __shared__ int s_warp[kWarps];
+  // a staged column: (birth, death, diagonal flag, dual), and its log weight
+  __shared__ float4 s_col[kStage];
+  __shared__ float s_logw[kStage];
   const int b = blockIdx.x;
   const int i = blockIdx.y * kRows + threadIdx.x;
   const bool live = i < m;
   const float* x = xp + (size_t)b * 3 * m;
-  const float* y = yp + (size_t)b * 3 * n;
+  const float* y = yq + (size_t)b * 3 * n;
+  const int* ix = idx + (size_t)b * n;
   const float* du = dual + (size_t)b * n;
-  const float* lw = logw + (size_t)b * n;
+  const float* lw = lwq + (size_t)b * n;
   float xb = 0.f, xd = 0.f;
   bool xdiag = false;
   if (live) {
@@ -114,41 +120,44 @@ sinkhorn_lse_kernel(const float* __restrict__ xp, const float* __restrict__ yp,
     xd = x[m + i];
     xdiag = x[2 * m + i] > 0.f;
   }
+  const int weighted = count[b];
   const float e = e_t[b];
   float m_run = -INFINITY, s_run = 0.f;
-  for (int j0 = 0; j0 < n; j0 += kCols) {
-    const int j = j0 + threadIdx.x;
-    const float w_j = j < n ? lw[j] : -INFINITY;
-    __syncthreads();  // the previous tile is no longer read
-    int cols;
-    const int slot = pack_slot(w_j != -INFINITY, s_warp, &cols);
-    if (w_j != -INFINITY) {
-      s_yb[slot] = y[j];
-      s_yd[slot] = y[n + j];
-      s_yf[slot] = y[2 * n + j];
-      s_dual[slot] = du[j];
-      s_logw[slot] = w_j;
+  for (int j0 = 0; j0 < weighted; j0 += kStage) {
+    const int cols = min(kStage, weighted - j0);
+    // whole chunks: the padding columns have log weight -inf, so z = -inf,
+    // which moves neither the maximum nor the sum (exp(-inf) adds +0)
+    const int padded = (cols + kChunk - 1) / kChunk * kChunk;
+    if (j0 > 0) __syncthreads();  // the previous stage is no longer read
+    for (int t = threadIdx.x; t < padded; t += kRows) {
+      const int q = j0 + t;
+      const bool real = t < cols;
+      s_col[t] = real ? make_float4(y[q], y[n + q], y[2 * n + q], du[ix[q]])
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+      s_logw[t] = real ? lw[q] : -INFINITY;
     }
     __syncthreads();
-    if (!live || cols == 0) continue;
-    float m_blk = -INFINITY;
-    for (int t = 0; t < cols; ++t) {
-      const float c = cost(xb, xd, xdiag, s_yb[t], s_yd[t], s_yf[t]);
-      const float z = __fadd_rn(s_logw[t],
-                                __fdiv_rn(__fsub_rn(s_dual[t], c), e));
-      m_blk = fmaxf(m_blk, z);
+    if (!live) continue;
+    for (int c0 = 0; c0 < padded; c0 += kChunk) {
+      float z[kChunk];
+      float m_blk = -INFINITY;
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) {
+        const int t = c0 + u;
+        const float4 col = s_col[t];
+        const float c = cost(xb, xd, xdiag, col.x, col.y, col.z);
+        z[u] = __fadd_rn(s_logw[t], __fdiv_rn(__fsub_rn(col.w, c), e));
+        m_blk = fmaxf(m_blk, z[u]);
+      }
+      float s_blk = 0.f;
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u)
+        s_blk = __fadd_rn(s_blk, safe_exp(__fsub_rn(z[u], m_blk)));
+      const float m_new = fmaxf(m_run, m_blk);
+      s_run = __fadd_rn(__fmul_rn(s_run, safe_exp(__fsub_rn(m_run, m_new))),
+                        __fmul_rn(s_blk, safe_exp(__fsub_rn(m_blk, m_new))));
+      m_run = m_new;
     }
-    float s_blk = 0.f;
-    for (int t = 0; t < cols; ++t) {
-      const float c = cost(xb, xd, xdiag, s_yb[t], s_yd[t], s_yf[t]);
-      const float z = __fadd_rn(s_logw[t],
-                                __fdiv_rn(__fsub_rn(s_dual[t], c), e));
-      s_blk = __fadd_rn(s_blk, safe_exp(__fsub_rn(z, m_blk)));
-    }
-    const float m_new = fmaxf(m_run, m_blk);
-    s_run = __fadd_rn(__fmul_rn(s_run, safe_exp(__fsub_rn(m_run, m_new))),
-                      __fmul_rn(s_blk, safe_exp(__fsub_rn(m_blk, m_new))));
-    m_run = m_new;
   }
   if (live)
     out[(size_t)b * m + i] =
@@ -237,18 +246,22 @@ __global__ void sum_partials_kernel(const float* __restrict__ partial,
 
 }  // namespace
 
-// xp (B,3,M), yp (B,3,N), dual/logw (B,N), e_t (B,), out (B,M): float32,
-// contiguous, on the device of ``stream``.
-extern "C" int sinkhorn_lse_launch(const void* xp, const void* yp,
-                                   const void* dual, const void* logw,
+// xp (B,3,M) float32; the packed columns of the y side: yq (B,3,N) planes,
+// idx (B,N) int32 column indices, count (B,) int32, lwq (B,N) log weights
+// (entries past count[b] are not read); dual (B,N) and e_t (B,) float32;
+// out (B,M).  Contiguous, on the device of ``stream``.
+extern "C" int sinkhorn_lse_launch(const void* xp, const void* yq,
+                                   const void* idx, const void* count,
+                                   const void* dual, const void* lwq,
                                    const void* e_t, void* out, int b, int m,
                                    int n, void* stream) {
   if (b <= 0 || m <= 0) return 0;
   const dim3 grid(b, (m + kRows - 1) / kRows);
   if (grid.y > 65535) return (int)cudaErrorInvalidConfiguration;
   sinkhorn_lse_kernel<<<grid, kRows, 0, (cudaStream_t)stream>>>(
-      (const float*)xp, (const float*)yp, (const float*)dual,
-      (const float*)logw, (const float*)e_t, (float*)out, m, n);
+      (const float*)xp, (const float*)yq, (const int*)idx, (const int*)count,
+      (const float*)dual, (const float*)lwq, (const float*)e_t, (float*)out,
+      m, n);
   return (int)cudaGetLastError();
 }
 

@@ -3,15 +3,18 @@
 Each ``csrc/<name>.cu`` has a plain C interface and becomes its own shared
 library ``build/repro_torch/lib<name>-<hash>.so`` at the repository root,
 named by a hash of its source and flags, so an edited source is rebuilt and
-an unchanged one is not.  Nothing is built when a module is imported: the
-first call that needs a kernel builds it, and :func:`build` starts one nvcc
-per source, all at once.
+an unchanged one is not.  nvcc's output, ptxas's register, shared-memory
+and spill report for every kernel among it, is kept beside it as
+``lib<name>-<hash>.log`` (:func:`ptxas_report`).  Nothing is built when a
+module is imported: the first call that needs a kernel builds it, and
+:func:`build` starts one nvcc per source, all at once.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -23,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("kcore_peel", "domination", "gf2_reduce", "common_neighbors",
            "pairwise_l1", "sinkhorn_lse", "auction_lap", "hamming")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -72,10 +75,32 @@ def build(names=SOURCES) -> dict[str, float]:
         if proc.returncode != 0:
             failed.append(f"{name}:\n{log.decode(errors='replace')}")
             continue
+        out.with_suffix(".log").write_bytes(log)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return seconds
+
+
+def ptxas_report(name: str) -> dict[str, dict[str, int]]:
+    """Per kernel of library ``name`` (built), by mangled name: registers,
+    shared-memory bytes and spill bytes (stores + loads), from the build's
+    log (empty when there is none)."""
+    log = library_path(name).with_suffix(".log")
+    out, entry = {}, None
+    for line in (log.read_text().splitlines() if log.exists() else ()):
+        hit = re.search(r"Compiling entry function '([^']+)'", line)
+        if hit:
+            entry = out.setdefault(hit.group(1), {})
+        elif entry is not None and "spill stores" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes spill", line)]
+            entry["spill_bytes"] = sum(nums)
+        elif entry is not None and "Used" in line and "registers" in line:
+            entry["registers"] = int(re.search(r"Used (\d+) registers",
+                                               line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            entry["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+    return out
 
 
 def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:

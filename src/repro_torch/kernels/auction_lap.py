@@ -512,7 +512,8 @@ def auction_lap_collapsed_cuda(cbar: torch.Tensor, keep1: torch.Tensor,
                                keep2: torch.Tensor, price0: torch.Tensor,
                                ladder: torch.Tensor, max_rounds: int,
                                rev_every: int):
-    """Launch the collapsed forward/reverse auction: one CTA per problem.
+    """Launch the collapsed forward/reverse auction: one warp per problem
+    at K <= 32 (four to a CTA), one CTA per problem above.
 
     ``cbar`` (B, K, K) and ``price0`` (B, K) float32, ``keep1``/``keep2``
     (B, K) bool, ``ladder`` (n_scales,) float32, all contiguous on one CUDA

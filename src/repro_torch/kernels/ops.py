@@ -25,7 +25,7 @@ from repro_torch.kernels.hamming import (
 from repro_torch.kernels.kcore_peel import kcore_peel_cuda
 from repro_torch.kernels.pairwise_gram import pairwise_l1_cuda
 from repro_torch.kernels.sinkhorn_lse import (
-    sinkhorn_lse_cuda, sinkhorn_pair_sum_cuda)
+    PackedColumns, pack_columns, sinkhorn_lse_cuda, sinkhorn_pair_sum_cuda)
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
@@ -249,21 +249,35 @@ def _check_planes(name, xp, yp, *, rows, cols, e_t):
 
 
 def sinkhorn_lse(xp: torch.Tensor, yp: torch.Tensor, dual: torch.Tensor,
-                 logw: torch.Tensor, e_t: torch.Tensor) -> torch.Tensor:
+                 logw: torch.Tensor, e_t: torch.Tensor,
+                 packed: PackedColumns | None = None) -> torch.Tensor:
     """(B, M) blocked Sinkhorn half-update, the cost built on the fly:
     ``out[b, i] = LSE_j(logw_j + (dual_j - c_ij) / e_b)``.
 
     xp (B, 3, M) and yp (B, 3, N) coordinate planes, dual and logw (B, N),
-    e_t (B, 1), all float32 and contiguous.
+    e_t (B, 1), all float32 and contiguous.  ``packed``, optional: the
+    :func:`pack_columns` of ``yp`` and ``logw``, made once and passed to
+    every call with the same planes and log weights; it is read in their
+    place (on the CPU, the plain version runs on the packed columns).
     """
     b, m, n = _check_planes("sinkhorn_lse", xp, yp, rows=(),
                             cols=(dual, logw), e_t=e_t)
+    if packed is not None and (
+            not isinstance(packed, PackedColumns)
+            or packed.index.shape != (b, n)
+            or packed.index.device != xp.device):
+        raise ValueError(f"sinkhorn_lse: packed must be the pack_columns of "
+                         f"the ({b}, 3, {n}) planes on {xp.device}")
     if _route(xp.device, "sinkhorn_lse"):
-        out = sinkhorn_lse_cuda(xp, yp, dual, logw, e_t)
+        out = sinkhorn_lse_cuda(xp, yp, dual, logw, e_t, packed)
         if b and m:
             counters.KERNEL_LAUNCHES["sinkhorn_lse"] += 1
         return out
-    return ref.sinkhorn_lse_ref(xp, yp, dual, logw, e_t)
+    if packed is None:
+        return ref.sinkhorn_lse_ref(xp, yp, dual, logw, e_t)
+    return ref.sinkhorn_lse_ref(xp, packed.planes,
+                                dual.gather(-1, packed.index.long()),
+                                packed.logw, e_t)
 
 
 def sinkhorn_pair_sum(xp: torch.Tensor, yp: torch.Tensor, f: torch.Tensor,

@@ -198,17 +198,28 @@ class _DenseSinkhornOps:
 class _BlockedSinkhornOps:
     """Sinkhorn update primitives with the cost rebuilt on the fly by the
     blocked kernels: no (M, N) cost matrix exists.  Takes (B, M, 2) clouds
-    with one leading batch axis."""
+    with one leading batch axis.  Each side's weighted columns are packed
+    once per log-weight tensor (``kops.pack_columns``): a Sinkhorn call
+    passes the same ``log_a`` and ``log_b`` to every half-update."""
 
     def __init__(self, x, y, xd, yd):
         self.xp = _cloud_planes(x, xd)
         self.yp = _cloud_planes(y, yd)
+        self._packed = {}  # side -> (log weights, their pack)
+
+    def _pack(self, side, planes, logw):
+        hit = self._packed.get(side)
+        if hit is None or hit[0] is not logw:
+            hit = self._packed[side] = (logw, kops.pack_columns(planes, logw))
+        return hit[1]
 
     def lse_cols(self, dual, logw, e_t):
-        return kops.sinkhorn_lse(self.xp, self.yp, dual, logw, e_t)
+        return kops.sinkhorn_lse(self.xp, self.yp, dual, logw, e_t,
+                                 packed=self._pack("y", self.yp, logw))
 
     def lse_rows(self, dual, logw, e_t):
-        return kops.sinkhorn_lse(self.yp, self.xp, dual, logw, e_t)
+        return kops.sinkhorn_lse(self.yp, self.xp, dual, logw, e_t,
+                                 packed=self._pack("x", self.xp, logw))
 
     def plan_cost(self, f, g, log_a, log_b, e_t):
         return kops.sinkhorn_pair_sum(self.xp, self.yp, f, g, log_a, log_b,

@@ -93,7 +93,9 @@ def diagram_points(d: Diagrams, k: int = 1, cap: float = 64.0):
 # with 0 or 1 valid slots, the n64 clouds (at the n64 batch) and the n320
 # full tensor's clouds
 SINKHORN_CASES = ((3, 37, 150, 0), (2, 1, 5, 1), (4, 64, 64, 1),
-                  (2, 130, 257, 7), (2048, 64, 64, 3), (2, 3200, 3200, 40))
+                  (2, 130, 257, 7), (2048, 64, 64, 3), (2, 3200, 3200, 40),
+                  (2, 3200, 3200, 0), (2, 3200, 3200, 1),
+                  (2, 3200, 3200, 128), (2, 3200, 3200, 129))
 
 
 def sinkhorn_operands(rng: np.random.Generator, b: int, m: int, n: int,
@@ -166,12 +168,29 @@ AUCTION_CASES = (
     ("collapsed", 4, 16, {}, {"max_rounds": 1}),
     ("collapsed", 1, 16, {}, {}),
     ("collapsed", 4096, 16, {}, {}),
+    # the collapsed kernel's layouts: a warp per problem, four to a CTA, at
+    # K <= 32 (batches off the multiples of 4; neighbours that stop at very
+    # different rounds: empty problems beside full ones, warm lanes beside
+    # cold ones, a round cap of 1), a CTA per problem above; ±0 ties
+    ("collapsed", 6, 16, {}, {}),
+    ("collapsed", 7, 32, {}, {}),
+    ("collapsed", 6, 16, {"mixed": True}, {}),
+    ("collapsed", 5, 32, {"mixed": True}, {}),
+    ("warm", 5, 32, {}, {}),
+    ("collapsed", 6, 16, {}, {"max_rounds": 1}),
+    ("collapsed", 3, 64, {}, {}),
+    ("collapsed", 3, 65, {}, {}),
+    ("collapsed", 4, 8, {"signed_zero": True}, {}),
+    ("collapsed", 4, 16, {"signed_zero": True}, {}),
+    ("collapsed", 3, 64, {"signed_zero": True}, {}),
+    ("collapsed", 3, 64, {"mixed": True}, {"rev_every": 2}),
 )
 
 
 def auction_operands(rng: np.random.Generator, b: int, m: int, kind: str,
                      device=None, zero: bool = False, invalid: bool = False,
-                     scale: float = 1.0) -> dict[str, torch.Tensor]:
+                     scale: float = 1.0, mixed: bool = False,
+                     signed_zero: bool = False) -> dict[str, torch.Tensor]:
     """Operands of the auction kernels, on ``device``.
 
     ``kind="expanded"``: ``cost`` (B, M, M) float32 uniform in [0, 5).
@@ -180,7 +199,10 @@ def auction_operands(rng: np.random.Generator, b: int, m: int, kind: str,
     (all of them in batch item 0), and a zero ``price0``.  ``"warm"``: the
     same with a nonnegative ``price0`` on random valid slots of the odd
     batch items.  ``zero`` zeroes the costs, ``invalid`` clears every mask,
-    ``scale`` multiplies the costs.
+    ``scale`` multiplies the costs, ``mixed`` clears the masks of the odd
+    batch items (problems that end at once beside full ones) and
+    ``signed_zero`` draws every cost from {-0, +0, ±1, 2} (ties, ±0 among
+    them, in every row and column).
     """
     if kind not in ("expanded", "collapsed", "warm"):
         raise ValueError(f"unknown auction operand kind {kind!r}")
@@ -192,6 +214,8 @@ def auction_operands(rng: np.random.Generator, b: int, m: int, kind: str,
         keep1[0] = keep2[0] = True
         if invalid:
             keep1[:] = keep2[:] = False
+        if mixed:
+            keep1[1::2] = keep2[1::2] = False
         price0 = np.zeros((b, m))
         if kind == "warm":
             hot = keep2 & (rng.random((b, m)) < 0.5)
@@ -200,6 +224,9 @@ def auction_operands(rng: np.random.Generator, b: int, m: int, kind: str,
         arrays = dict(cost=rng.uniform(-3, 3, (b, m, m)), keep1=keep1,
                       keep2=keep2, price0=price0)
     arrays["cost"] = arrays["cost"] * (0.0 if zero else scale)
+    if signed_zero:
+        arrays["cost"] = rng.choice(np.array([-0.0, 0.0, 1.0, -1.0, 2.0]),
+                                    arrays["cost"].shape)
     if kind != "expanded":
         arrays["cbar"] = arrays.pop("cost")
     dev = resolve_device(device)

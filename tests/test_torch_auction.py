@@ -88,6 +88,8 @@ COLLAPSED = [
     ("collapsed", 3, 6, {"invalid": True}, {"rev_every": 8}),
     ("collapsed", 3, 7, {"zero": True}, {"rev_every": 0}),
     ("collapsed", 5, 1, {}, {"rev_every": 8}),
+    ("collapsed", 4, 9, {"signed_zero": True}, {"rev_every": 0}),
+    ("collapsed", 6, 8, {"mixed": True}, {"rev_every": 0}),
 ]
 
 
@@ -188,6 +190,121 @@ def test_wrappers_check_their_operands():
     ops.auction_lap(cost)
     ops.auction_lap_collapsed(cost, keep, keep)
     assert counters.snapshot() == before  # the plain path launches nothing
+
+
+# ------------------------------------------- the collapsed kernel's scans
+
+def _serial_top2(v):
+    """``csrc/auction_lap.cu``'s serial ``top2`` over float32 values: the
+    first argmax, the maximum and the maximum over the other indices."""
+    js, v1, v2 = 0, np.float32(-np.inf), np.float32(-np.inf)
+    for j, x in enumerate(v):
+        if x > v1:
+            js, v1, v2 = j, x, v1
+        elif x > v2:
+            v2 = x
+    return js, v1, v2
+
+
+_NO_KEY = torch.iinfo(torch.int64).min
+
+
+def _scan_keys(v):
+    """The kernel's ``bid_key(v, ~j)`` as signed int64 keys in the same
+    order: the order-preserving bits of v (±0 alike) above 2^32 - 1 - j."""
+    u = torch.where(v == 0, 0.0, v).view(torch.int32).to(torch.int64)
+    u = u & 0xFFFFFFFF
+    o = torch.where(u >> 31 == 1, u ^ 0xFFFFFFFF, u ^ 0x80000000)
+    j = torch.arange(v.shape[-1], dtype=torch.int64)
+    return ((o - 2 ** 31) << 32) + (0xFFFFFFFF - j)
+
+
+def _tree_top2(v, s):
+    """``seg_top2`` of the collapsed kernel over an S-lane segment, in
+    torch: lane l keeps the top two keys of j = l, l + S, ... in that order,
+    then the lanes merge by xor shuffles; v1 and v2 are read back at the two
+    indices (``_NO_KEY``: none, v2 = -inf)."""
+    keys = _scan_keys(v)
+    a = torch.full((s,), _NO_KEY, dtype=torch.int64)
+    b = a.clone()
+    for j in range(v.shape[-1]):
+        lane, k = j % s, keys[j]
+        if k > a[lane]:
+            b[lane], a[lane] = a[lane].clone(), k
+        elif k > b[lane]:
+            b[lane] = k
+    lanes = torch.arange(s)
+    o = s // 2
+    while o:
+        pa, pb = a[lanes ^ o], b[lanes ^ o]
+        mine = a > pa
+        b = torch.maximum(torch.where(mine, b, pb), torch.where(mine, pa, a))
+        a = torch.where(mine, a, pa)
+        o //= 2
+    assert bool((a == a[0]).all() and (b == b[0]).all())
+    js = 0xFFFFFFFF - (int(a[0]) & 0xFFFFFFFF)
+    v2 = (v[0xFFFFFFFF - (int(b[0]) & 0xFFFFFFFF)] if int(b[0]) != _NO_KEY
+          else torch.tensor(float("-inf")))
+    return js, v[js], v2
+
+
+def _redux_top2(v):
+    """``seg_top2`` at S = 32, in torch: each lane keeps the serial scan's
+    top two (value bits and index) of j = l, l + 32, ...; warp-wide
+    reductions then take the largest value bits, the lowest index holding
+    them (js), and the same over every lane's best candidate but js."""
+    bits = (_scan_keys(v) >> 32) + 2 ** 31  # the value's order bits, u32
+    a = torch.zeros(32, dtype=torch.int64)
+    b = a.clone()
+    ia = torch.full((32,), 2 ** 32 - 1, dtype=torch.int64)
+    ib = ia.clone()
+    for j in range(v.shape[-1]):
+        lane, k = j % 32, bits[j]
+        if k > a[lane]:
+            b[lane], ib[lane] = a[lane].clone(), ia[lane].clone()
+            a[lane], ia[lane] = k, j
+        elif k > b[lane]:
+            b[lane], ib[lane] = k, j
+    m1 = a.max()
+    js = int(torch.where(a == m1, ia, 2 ** 32 - 1).min())
+    top = ia == js
+    c, ic = torch.where(top, b, a), torch.where(top, ib, ia)
+    m2 = c.max()
+    v2 = (v[int(torch.where(c == m2, ic, 2 ** 32 - 1).min())] if int(m2)
+          else torch.tensor(float("-inf")))
+    return js, v[js], v2
+
+
+def _scan_rows(k, seed):
+    """float32 rows of ``a - sub`` with equal maxima, ±0 ties, -inf masked
+    entries and all -inf rows."""
+    rng = np.random.default_rng(seed)
+    pool = np.array([-0.0, 0.0, 1.0, 1.0, -1.0, 0.5, -np.inf], np.float32)
+    rows = [rng.choice(pool, k), rng.choice(pool[[0, 1, 6]], k),
+            np.full(k, -np.inf, np.float32), np.full(k, 1.0, np.float32),
+            rng.uniform(-2, 2, k).astype(np.float32)]
+    zeros = np.zeros(k, np.float32)
+    zeros[::2] = -0.0
+    rows.append(zeros)
+    for _ in range(12):
+        a = rng.choice(pool, k)
+        sub = rng.choice(np.array([0.0, 1.0, 0.5], np.float32), k)
+        rows.append(a - sub)  # x - x = +0, -0 - 0 = -0
+    return [torch.from_numpy(np.ascontiguousarray(r, np.float32))
+            for r in rows]
+
+
+@pytest.mark.parametrize("s", [8, 16, 32, "redux"])
+@pytest.mark.parametrize("k", [1, 31, 33, 64])
+def test_segment_tree_top2_equals_the_serial_scan(k, s):
+    # the kernel merges with xor shuffles at S = 8 and 16, with warp
+    # reductions at S = 32 ("redux"); either must give the serial bits
+    for v in _scan_rows(k, seed=100 * k + (32 if s == "redux" else s)):
+        js, v1, v2 = _serial_top2(v.numpy())
+        tjs, tv1, tv2 = _redux_top2(v) if s == "redux" else _tree_top2(v, s)
+        assert tjs == js
+        assert np.float32(tv1).tobytes() == v1.tobytes()
+        assert np.float32(tv2).tobytes() == np.float32(v2).tobytes()
 
 
 # ------------------------------------------------------------ cost surfaces

@@ -34,7 +34,7 @@ from repro_torch.kernels.gf2_reduce import gf2_reduce_cuda
 from repro_torch.kernels.kcore_peel import kcore_peel_cuda
 from repro_torch.kernels.pairwise_gram import pairwise_l1_cuda
 from repro_torch.kernels.sinkhorn_lse import (
-    sinkhorn_lse_cuda, sinkhorn_pair_sum_cuda)
+    pack_columns, sinkhorn_lse_cuda, sinkhorn_pair_sum_cuda)
 from repro_torch.kernels.hamming import hamming_scan_cuda
 from repro_torch.metrics.testing import (
     AUCTION_CASES, HAMMING_CASES, SINKHORN_CASES, auction_operands,
@@ -212,6 +212,10 @@ def test_sinkhorn_lse_kernel(cuda, b, m, n, v0):
     got = sinkhorn_lse_cuda(*args)
     _close_with_inf(got, ref.sinkhorn_lse_ref(*args))
     assert torch.equal(sinkhorn_lse_cuda(*args), got)  # bitwise repeatable
+    # the columns packed once by the caller: the same launch, the same bits
+    packed = pack_columns(t["yp"], t["log_b"])
+    assert torch.equal(sinkhorn_lse_cuda(*args, packed), got)
+    assert torch.equal(ops.sinkhorn_lse(*args, packed=packed), got)
     if v0 == 0:
         assert bool(torch.isneginf(got[0]).all())
 

@@ -127,6 +127,58 @@ def test_sinkhorn_pair_sum_ref_matches_repro(b, m, n, v0, mode):
         assert got[0] == 0.0
 
 
+@pytest.mark.parametrize("count", [0, 1, 128, 129, 300])
+def test_pack_columns_keeps_column_order(count):
+    # N = 300, not a multiple of 128; batch item 1 has the complement
+    rng = np.random.default_rng(count)
+    b, n = 3, 300
+    keep = np.zeros((b, n), bool)
+    keep[0, rng.choice(n, count, replace=False)] = True
+    keep[1] = ~keep[0]
+    keep[2] = rng.random(n) < 0.3
+    logw = np.where(keep, rng.normal(size=(b, n)), -np.inf).astype(np.float32)
+    yp = rng.normal(size=(b, 3, n)).astype(np.float32)
+    got = ops.pack_columns(torch.from_numpy(yp), torch.from_numpy(logw))
+    for i in range(b):
+        cols = np.flatnonzero(keep[i])
+        c = int(got.count[i])
+        assert c == len(cols)
+        np.testing.assert_array_equal(got.index[i, :c].numpy(), cols)
+        assert sorted(got.index[i].tolist()) == list(range(n))
+        np.testing.assert_array_equal(got.logw[i, :c].numpy(),
+                                      logw[i, cols])
+        np.testing.assert_array_equal(got.planes[i, :, :c].numpy(),
+                                      yp[i][:, cols])
+        assert np.isneginf(got.logw[i, c:].numpy()).all()
+    assert (got.index.dtype, got.count.dtype) == (torch.int32, torch.int32)
+    assert got.planes.is_contiguous() and got.logw.is_contiguous()
+
+
+@pytest.mark.parametrize("b,m,n,v0", KERNEL_CASES)
+def test_sinkhorn_lse_packed_matches_repro(b, m, n, v0):
+    xp, yp, _, dual, _, logw, e_t = _kernel_inputs(b, m, n, v0, seed=2)
+    t = [torch.from_numpy(a) for a in (xp, yp, dual, logw, e_t)]
+    want = kref_j.sinkhorn_lse_ref(
+        *(jnp.asarray(a) for a in (_pad8(xp), _pad8(yp), dual, logw, e_t)))
+    packed = ops.pack_columns(t[1], t[3])
+    for got in (ops.sinkhorn_lse(*t), ops.sinkhorn_lse(*t, packed=packed)):
+        _assert_close_with_inf(got.numpy(), want, 1e-5, 1e-5)
+    if v0 == 0:  # batch item 0 has no valid column: -inf, never NaN
+        got = ops.sinkhorn_lse(*t, packed=packed)
+        assert np.isneginf(got[0].numpy()).all()
+
+
+def test_blocked_sinkhorn_packs_each_side_once_per_call(monkeypatch):
+    calls = []
+    pack = ops.pack_columns
+    monkeypatch.setattr(ops, "pack_columns",
+                        lambda yp, logw: calls.append(yp.shape) or
+                        pack(yp, logw))
+    _, (t1, t2) = _pairs(17, 2, 12)
+    distances.sinkhorn_w2(t1, t2, impl="blocked", n_iters=3, n_scales=2)
+    assert len(calls) == 6  # three OT terms, two sides each
+
+
 def test_pair_sum_rejects_unknown_mode():
     args = [torch.from_numpy(a) for a in _kernel_inputs(1, 3, 4, 2)]
     with pytest.raises(ValueError, match="unknown pair-sum mode"):
@@ -146,6 +198,9 @@ def test_sinkhorn_wrappers_check_their_operands():
         ops.sinkhorn_lse(xp, yp, dual.double(), logw, e_t)
     with pytest.raises(ValueError, match="planes"):
         ops.sinkhorn_lse(xp[:, 0], yp, dual, logw, e_t)
+    with pytest.raises(ValueError, match="pack_columns"):
+        ops.sinkhorn_lse(xp, yp, dual, logw, e_t,
+                         packed=ops.pack_columns(xp, logw[:, :5]))
 
 
 # ------------------------------------------------------------- sinkhorn_w2
