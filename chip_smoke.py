@@ -40,11 +40,15 @@ port's five paths:
 
 CUDA results are compared with the same functions run on the CPU: bitwise
 where the computation is exact, within a stated tolerance where float sums
-run in another order.  Then each kernel is timed at the largest input each
-phase gave it, and one n64 execution, one n64 clustering call, one
-index run (and the sharded LSH query alone), one full-tensor Sinkhorn call
-and one DD-rung exact_w call are profiled for device time
-by kernel.  Each phase prints one JSON line; any failure exits
+run in another order.  The kernel checks also run ``kcore_peel`` at every
+cluster size its selector returns on this card and hold both
+``pairwise_l1`` layouts against each other bitwise.  Then one n64
+execution, one n64 clustering call, one index run (and the sharded LSH
+query alone), one full-tensor Sinkhorn call and one DD-rung exact_w call
+are profiled for device time by kernel, and each kernel is timed at the
+largest input each phase gave it (``kcore_peel`` and ``pairwise_l1`` also
+on the device, behind a sleep that keeps the host out of the time, with
+the cluster size or layout the launch took).  Each phase prints one JSON line; any failure exits
 non-zero.  The last two lines are the ``kernels`` summary (launches on the
 main path, error against the plain version, times and bounds) after the
 card's name and power limit, and the ``ok`` line.
@@ -171,6 +175,52 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int = 20) -> float:
+    """Mean device milliseconds per call of ``fn()`` with the host out of
+    the way: a sleep kernel holds the stream while the host queues ``reps``
+    calls, then CUDA events time them back to back on the device (the gaps
+    between launches included).  Where back-to-back calls between plain
+    events wait on the host, this reads the kernel.  The sleep doubles
+    until it outlasts the queueing.  (Not torch.profiler: after a few
+    sessions in one process it can miss every launch of a short window.)"""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    cycles = 4_000_000  # ~2 ms at the H100's 1.98 GHz
+    for _ in range(6):
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        held = not start.query()  # the sleep still ran once all were queued
+        torch.cuda.synchronize()
+        if held:
+            return start.elapsed_time(end) / reps
+        cycles *= 2
+    raise SmokeFailure("device_ms: the host could not queue the calls "
+                       "within the sleep")
+
+
+def host_ms_per_call(fn, reps: int = 50) -> float:
+    """Mean host-clock milliseconds one call of ``fn()`` takes to return
+    (the wrapper's host work and the launch, not the kernel), after one
+    warm-up call and a synchronise."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / reps * 1e3
+
+
 def l1_tolerance(x, y):
     """(M, N) bound on |kernel - plain| of a pairwise-L1 Gram: f32 sums of
     D nonnegative terms in another order (L1_TOLERANCE)."""
@@ -278,7 +328,7 @@ def _random_graphs(b, n, p, seed, device):
     adj = np.triu(rng.random((b, n, n), dtype=np.float32) < p, 1)
     adj = adj | adj.transpose(0, 2, 1)
     mask = rng.random((b, n)) < 0.9
-    mask[0] = False  # an empty graph
+    mask[0] &= b == 1  # an empty graph, unless it is the only one
     adj &= mask[:, None, :] & mask[:, :, None]
     return (torch.from_numpy(adj).to(device),
             torch.from_numpy(mask).to(device))
@@ -301,6 +351,26 @@ def _bit31_blocks(g, s, r, seed, device):
     return torch.from_numpy(words.view(np.int32)).to(device)
 
 
+def _kcore_cluster_cases(dev):
+    """(B, N, mean degree) of the cluster checks: the batch that gets each
+    cluster size the selector returns at N = 1024 on this card, B = 1 and
+    a ragged B, B around the SM count, ragged and 33-word N, and packed
+    rows past shared memory (global scratch) at c = 8 and c = 1."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return ([(sms // c, 1024, 5.0) for c in (1, 2, 4, 8)]
+            + [(1, 1024, 5.0), (17, 1024, 5.0), (sms - 1, 512, 4.0),
+               (sms + 1, 512, 4.0), (5, 1000, 6.0), (3, 1056, 6.0),
+               (1, 96, 6.0), (2, 4096, 4.0), (67, 1500, 4.0)])
+
+
+def _l1_layout(m, n) -> str:
+    from repro_torch.kernels.pairwise_gram import small_grid
+
+    return "small-grid 16x16" if small_grid(m, n) else "64x64"
+
+
 def phase_kernel_checks(dev) -> dict:
     """Every kernel against its plain version at edge-case shapes: ragged
     N, empty graphs and batches, complete graphs, rows past shared memory,
@@ -315,9 +385,10 @@ def phase_kernel_checks(dev) -> dict:
     from repro_torch.kernels.common_neighbors import common_neighbors_cuda
     from repro_torch.kernels.domination import domination_cuda
     from repro_torch.kernels.gf2_reduce import gf2_reduce_cuda
-    from repro_torch.kernels.kcore_peel import kcore_peel_cuda
-    from repro_torch.kernels.pairwise_gram import pairwise_l1_cuda
+    from repro_torch.kernels.kcore_peel import cluster_size, kcore_peel_cuda
+    from repro_torch.kernels.pairwise_gram import pairwise_l1_cuda, small_grid
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     cases = []
 
     def record(name, shape, err):
@@ -341,6 +412,29 @@ def phase_kernel_checks(dev) -> dict:
         if n <= 1000:
             record("domination", [b, n], max_abs_err(
                 [domination_cuda(adj, mask)], [ref.domination_ref(adj, mask)]))
+    for b, n, deg in _kcore_cluster_cases(dev):
+        adj, mask = _random_graphs(b, n, deg / n, seed=b + n, device=dev)
+        c = cluster_size(b, n, sms)
+        for k in (2, n + 1):  # n + 1: past every degree, all die
+            one = ref.kcore_peel_ref(adj, mask, k)
+            fix = one
+            while True:
+                nxt = ref.kcore_peel_ref(adj, fix, k)
+                if torch.equal(nxt, fix):
+                    break
+                fix = nxt
+            got = kcore_peel_cuda(adj, mask, k, 0)
+            for sweeps, want, out in (
+                    (1, one, kcore_peel_cuda(adj, mask, k, 1)),
+                    (2, ref.kcore_peel_ref(adj, one, k),
+                     kcore_peel_cuda(adj, mask, k, 2)),
+                    (0, fix, got)):
+                record("kcore_peel", [b, n, k, sweeps, f"cluster {c}"],
+                       max_abs_err([out], [want]))
+            check(torch.equal(got, kcore_peel_cuda(adj, mask, k, 0)),
+                  f"kcore_peel {[b, n, k]}: two launches differ")
+            check(k <= n or not bool(got.any()),
+                  f"kcore_peel {[b, n, k]}: a vertex survived k past n")
     empty = torch.zeros((0, 8, 8), dtype=torch.bool, device=dev)
     check(kcore_peel_cuda(empty, empty[:, 0], 1, 0).shape == (0, 8),
           "kcore_peel on an empty batch")
@@ -404,6 +498,29 @@ def phase_kernel_checks(dev) -> dict:
                               "within_tolerance": ok})
                 check(ok, f"pairwise_l1 {[m, n, d]}: kernel outside "
                           f"{L1_TOLERANCE} of the plain version")
+    # both layouts: every output of a small launch, on either side of the
+    # switch to the small-grid layout, bitwise the same rows of one launch
+    # of 64 x 64 tiles
+    rng = np.random.default_rng(19)
+    for d in (372, 652):
+        x = torch.from_numpy(rng.uniform(0, 64, (4200, d)).astype(
+            np.float32)).to(dev)
+        y = torch.from_numpy(rng.uniform(0, 64, (4100, d)).astype(
+            np.float32)).to(dev)
+        check(not small_grid(4200, 4100), "pairwise_l1: 4200 x 4100 small")
+        big = pairwise_l1_cuda(x, y)
+        for m, n in ((72, 72), (1, 1), (33, 129), (500, 500), (520, 520),
+                     (4159, 1), (4161, 1), (100, 700)):
+            rows = torch.from_numpy(rng.choice(4200, m, replace=False)).to(dev)
+            cols = torch.from_numpy(rng.choice(4100, n, replace=False)).to(dev)
+            got = pairwise_l1_cuda(x[rows].contiguous(), y[cols].contiguous())
+            differ = int((got != big[rows][:, cols]).sum())
+            cases.append({"kernel": "pairwise_l1", "shape": [m, n, d],
+                          "layout": _l1_layout(m, n),
+                          "outputs_differing_from_64x64": differ})
+            check(differ == 0, f"pairwise_l1 {[m, n, d]}: the "
+                               f"{_l1_layout(m, n)} layout differs bitwise "
+                               "from the 64 x 64 launch")
 
     # sinkhorn_lse and sinkhorn_pair_sum in both modes; a second launch on
     # the same inputs must give the same bits
@@ -1678,7 +1795,8 @@ def _profile(name, fn, reps: int = 1) -> dict:
     ported = ("kcore_peel_kernel", "pack_closed_nbhd_kernel",
               "domination_tile_kernel", "gf2_reduce_kernel",
               "pack_rows_kernel", "common_neighbors_tile_kernel",
-              "pairwise_l1_kernel", "sinkhorn_lse_kernel",
+              "pairwise_l1_kernel", "pairwise_l1_small_kernel",
+              "sinkhorn_lse_kernel",
               "sinkhorn_pair_sum_kernel", "sum_partials_kernel",
               "auction_lap_kernel", "auction_collapsed_kernel",
               "hamming_scan_kernel")
@@ -1744,11 +1862,12 @@ def phase_profile_exact(d1, d2) -> dict:
 
 
 def _time_kcore(adj, alive, k, sweeps) -> dict:
-    """The fixpoint launch: kernel, plain loop (one sync per sweep), and
-    torch.bmm sweeps, as many as this input needs."""
+    """The fixpoint launch: kernel (between events and on the device),
+    plain loop (one sync per sweep), and torch.bmm sweeps, as many as this
+    input needs; and the cluster size the launch takes."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.kcore_peel import kcore_peel_cuda
+    from repro_torch.kernels.kcore_peel import cluster_size, kcore_peel_cuda
 
     b, n = alive.shape
 
@@ -1770,13 +1889,18 @@ def _time_kcore(adj, alive, k, sweeps) -> dict:
             cur = cur & (torch.bmm(af, cur.float()[:, :, None])[:, :, 0] >= k)
         return cur
 
+    def kernel():
+        return kcore_peel_cuda(adj, alive, k, sweeps)
+
     bt, by = bound(adj.numel() + 2 * alive.numel(),
                    3.0 * n_sweeps * b * n * ((n + 31) // 32))
+    sms = torch.cuda.get_device_properties(adj.device).multi_processor_count
     return {"name": "kcore_peel", "shape": [b, n, n], "k": k,
-            "sweeps_needed": n_sweeps,
-            "max_abs_err": max_abs_err([kcore_peel_cuda(adj, alive, k, sweeps)],
-                                       [want]),
-            "ms": cuda_ms(lambda: kcore_peel_cuda(adj, alive, k, sweeps)),
+            "sweeps_needed": n_sweeps, "cluster": cluster_size(b, n, sms),
+            "max_abs_err": max_abs_err([kernel()], [want]),
+            "ms": cuda_ms(kernel),
+            "device_ms": device_ms(kernel),
+            "host_ms": host_ms_per_call(kernel),
             "plain_ms": cuda_ms(plain_fixpoint, reps=3),
             "library_ms": cuda_ms(library), "bound_ms": bt, "bound_by": by}
 
@@ -1861,21 +1985,34 @@ def _time_common_neighbors(adj) -> dict:
 
 
 def _time_pairwise_l1(x, y) -> dict:
-    """Kernel, plain version and torch.cdist(p=1); the bound counts two f32
-    instructions (subtract, add with |.|) per (i, j, d)."""
+    """Kernel and torch.cdist(p=1) (between events and on the device), the
+    plain version, and the layout the launch takes; the bound counts two
+    f32 instructions (subtract, add with |.|) per (i, j, d)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.pairwise_gram import pairwise_l1_cuda
 
     (m, d), n = x.shape, y.shape[0]
-    err = (pairwise_l1_cuda(x, y) - ref.pairwise_l1_ref(x, y)).abs()
+
+    def kernel():
+        return pairwise_l1_cuda(x, y)
+
+    def library():
+        return torch.cdist(x, y, p=1)
+
+    err = (kernel() - ref.pairwise_l1_ref(x, y)).abs()
     bt, by = bound(4.0 * (m * d + n * d + m * n), 2.0 * m * n * d)
     return {"name": "pairwise_l1", "shape": [m, n, d],
+            "layout": _l1_layout(m, n),
             "max_abs_err": float(err.max()), "tolerance": L1_TOLERANCE,
             "within_tolerance": bool((err <= l1_tolerance(x, y)).all()),
-            "ms": cuda_ms(lambda: pairwise_l1_cuda(x, y)),
+            # 50 launches a side: at fig2's size both sides are host-bound
+            "ms": cuda_ms(kernel, reps=50),
+            "device_ms": device_ms(kernel),
+            "host_ms": host_ms_per_call(kernel),
             "plain_ms": cuda_ms(lambda: ref.pairwise_l1_ref(x, y), reps=3),
-            "library_ms": cuda_ms(lambda: torch.cdist(x, y, p=1)),
+            "library_ms": cuda_ms(library, reps=50),
+            "library_device_ms": device_ms(library),
             "bound_ms": bt, "bound_by": by}
 
 
@@ -2181,6 +2318,11 @@ def main() -> int:
             emit(phase_auction_parity(dev, launches, recorder))
         finally:
             Recorder.uninstall(originals)
+        emit(phase_profile(n64, N64_CAPS))
+        emit(phase_profile_clustering(n64))
+        emit(phase_profile_index(*index_run, sharded))
+        emit(phase_profile_sinkhorn(*sk_pairs))
+        emit(phase_profile_exact(*ex_pairs))
         rows = contract_rows(
             [r for ph in ("signature_n64", "clustering_n64", "index_n64",
                           "sinkhorn_full_n320", "exact_n320")
@@ -2197,11 +2339,6 @@ def main() -> int:
             recorder, "sharded_index_n65536", only=("hamming_scan",))
         emit({"phase": "kernel_times", "at": at})
         emit(phase_hamming_large(dev))
-        emit(phase_profile(n64, N64_CAPS))
-        emit(phase_profile_clustering(n64))
-        emit(phase_profile_index(*index_run, sharded))
-        emit(phase_profile_sinkhorn(*sk_pairs))
-        emit(phase_profile_exact(*ex_pairs))
         card = card_line()
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)

@@ -4,8 +4,8 @@ Paper Theorem 2: ``PD_j(G, f) = PD_j(G^{k+1}, f)`` for every ``j >= k >= 1``,
 so ``PD_k`` only needs the (k+1)-core.  The core is the fixpoint of the
 Jacobi sweep ``alive <- alive & (A @ alive >= k)`` started from the vertex
 mask.  On CUDA the whole fixpoint is one launch of the ``kcore_peel``
-kernel (one CTA per graph, looping until its own mask is stable), so it
-needs no host sync per sweep; on the CPU the plain sweep is iterated.
+kernel (a cluster of CTAs per graph, looping until its own mask is
+stable), so it needs no host sync per sweep; on the CPU the plain sweep is iterated.
 """
 from __future__ import annotations
 

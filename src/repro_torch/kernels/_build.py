@@ -21,6 +21,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("kcore_peel", "domination", "gf2_reduce", "common_neighbors",
@@ -103,7 +105,16 @@ def ptxas_report(name: str) -> dict[str, dict[str, int]]:
     return out
 
 
-def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+def stream_handle(device) -> int:
+    """The raw ``cudaStream_t`` of ``device``'s current stream, read anew at
+    every call, without the Stream object that
+    ``torch.cuda.current_stream(device).cuda_stream`` builds for it (a
+    large share of a small launch's host time)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def function(name: str, symbol: str, argtypes,
+             restype=ctypes.c_int) -> ctypes._CFuncPtr:
     """The C entry point ``symbol`` of library ``name``, built on first use."""
     with _lock:
         fn = _fns.get(symbol)
@@ -114,6 +125,6 @@ def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
                 lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
             fn = getattr(lib, symbol)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = restype
             _fns[symbol] = fn
     return fn

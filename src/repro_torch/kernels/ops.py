@@ -54,7 +54,8 @@ def kcore_peel(adj: torch.Tensor, alive: torch.Tensor, k: int,
                sweeps: int = 1) -> torch.Tensor:
     """``sweeps`` k-core peel sweeps over a (B, N, N) batch; 0 = fixpoint.
 
-    On CUDA the whole fixpoint runs inside one launch, one CTA per graph.
+    On CUDA the whole fixpoint runs inside one launch, a thread-block
+    cluster of 1-8 CTAs per graph.
     """
     b, n = alive.shape
     _check("kcore_peel adj", adj, torch.bool, (b, n, n), alive.device)

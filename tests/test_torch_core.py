@@ -78,8 +78,7 @@ def test_creating_entry_points_need_a_device_without_cuda(monkeypatch):
 
 def test_port_imports_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.convert, "
-            "repro_torch.data.graphs, repro_torch.kernels.ops, "
-            "repro_torch.kernels.tuning\n"
+            "repro_torch.data.graphs, repro_torch.kernels.ops\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'networkx')]\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")

@@ -80,6 +80,70 @@ def test_kcore_peel_kernel(cuda, n, p):
                            _plain_fixpoint(adj, mask, k))
 
 
+def _sparse_graphs(b, n, deg, seed, device):
+    """``_graphs`` at mean degree ~``deg``, drawn in float32 (large B*N*N);
+    graph 0 is empty when B > 1."""
+    rng = np.random.default_rng(seed)
+    adj = np.triu(rng.random((b, n, n), dtype=np.float32) < deg / n, 1)
+    adj = adj | adj.transpose(0, 2, 1)
+    mask = rng.random((b, n)) < 0.9
+    mask[0] &= b == 1
+    adj &= mask[:, None, :] & mask[:, :, None]
+    return (torch.from_numpy(adj).to(device),
+            torch.from_numpy(mask).to(device))
+
+
+def _check_kcore(adj, mask):
+    """Sweeps 1, 2 and 0 at k 1-3 and past every degree, bitwise the plain
+    sweeps; two launches bitwise equal."""
+    for k in (1, 2, 3, adj.shape[-1] + 1):
+        one = ref.kcore_peel_ref(adj, mask, k)
+        assert torch.equal(kcore_peel_cuda(adj, mask, k, 1), one)
+        assert torch.equal(kcore_peel_cuda(adj, mask, k, 2),
+                           ref.kcore_peel_ref(adj, one, k))
+        fix = kcore_peel_cuda(adj, mask, k, 0)
+        assert torch.equal(fix, _plain_fixpoint(adj, mask, k))
+        assert torch.equal(fix, kcore_peel_cuda(adj, mask, k, 0))
+    assert not bool(kcore_peel_cuda(adj, mask, adj.shape[-1] + 1, 0).any())
+
+
+@pytest.mark.parametrize("c", [1, 2, 4, 8])
+def test_kcore_peel_every_cluster_size(cuda, c):
+    # the batch the selector gives c CTAs per graph at N = 1024 on this card
+    from repro_torch.kernels.kcore_peel import cluster_size
+
+    sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    b = sm // c
+    assert cluster_size(b, 1024, sm) == c
+    _check_kcore(*_sparse_graphs(b, 1024, 5.0, seed=c, device=cuda))
+
+
+@pytest.mark.parametrize("b,n", [(1, 1024), (5, 1000), (3, 1056), (17, 1024),
+                                 (1, 96), (1, 128), (1, 45)])
+def test_kcore_peel_cluster_shapes(cuda, b, n):
+    # B = 1 and ragged B; ragged N (a byte per lane), N of 33 words, and
+    # graphs of 3, 4 and 2 words (clusters of 2, 4 and 2 CTAs)
+    _check_kcore(*_sparse_graphs(b, n, 6.0, seed=b + n, device=cuda))
+
+
+@pytest.mark.parametrize("delta", [-1, 0, 1])
+def test_kcore_peel_batch_around_the_sm_count(cuda, delta):
+    sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    _check_kcore(*_sparse_graphs(sm + delta, 512, 4.0, seed=sm + delta,
+                                 device=cuda))
+
+
+@pytest.mark.parametrize("b,n", [(2, 4096), (67, 1500)])
+def test_kcore_peel_rows_past_shared_memory(cuda, b, n):
+    # a cluster of 8 whose CTA shares still exceed shared memory, and
+    # one CTA per graph: both pack into the global scratch
+    from repro_torch.kernels.kcore_peel import cluster_size, scratch_words
+
+    sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert scratch_words(b, n, cluster_size(b, n, sm)) > 0
+    _check_kcore(*_sparse_graphs(b, n, 4.0, seed=n, device=cuda))
+
+
 @pytest.mark.parametrize("n,p", [(1, 0.5), (33, 0.3), (64, 0.1), (257, 0.02),
                                  (1024, 0.005)])
 def test_domination_kernel(cuda, n, p):
@@ -163,6 +227,30 @@ def test_pairwise_l1_kernel(cuda, m, n, d):
     assert _l1_ok(pairwise_l1_cuda(x, y), x, y)
     same = pairwise_l1_cuda(x, x)
     assert _l1_ok(same, x, x) and not bool(same.diagonal().any())
+
+
+@pytest.mark.parametrize("d", [1, 17, 372, 652])
+def test_pairwise_l1_layouts_agree_bitwise(cuda, d):
+    # small launches, on both sides of the switch to the small-grid layout,
+    # hold the same bits as the same rows of one 64 x 64-tiled launch
+    from repro_torch.kernels.pairwise_gram import small_grid
+
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy(rng.uniform(0, 64, (4200, d)).astype(np.float32))
+    y = torch.from_numpy(rng.uniform(0, 64, (4100, d)).astype(np.float32))
+    x, y = x.to(cuda), y.to(cuda)
+    assert not small_grid(4200, 4100)
+    big = pairwise_l1_cuda(x, y)
+    seen = set()
+    for m, n in [(1, 1), (72, 72), (33, 129), (500, 500), (520, 520),
+                 (4159, 1), (4161, 1), (65 * 64, 64), (4200, 64),
+                 (100, 700)]:
+        rows = torch.from_numpy(rng.choice(4200, m, replace=False)).to(cuda)
+        cols = torch.from_numpy(rng.choice(4100, n, replace=False)).to(cuda)
+        got = pairwise_l1_cuda(x[rows].contiguous(), y[cols].contiguous())
+        assert torch.equal(got, big[rows][:, cols]), (m, n)
+        seen.add(small_grid(m, n))
+    assert seen == {True, False}
 
 
 def test_clustering_and_index_on_the_card_match_the_cpu(cuda):

@@ -1,0 +1,303 @@
+"""The kcore_peel and pairwise_l1 kernels' layouts, emulated on the CPU.
+
+The CUDA kernels run only on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py``).  What their layouts must preserve is checked here, in
+torch, with zero tolerance:
+
+* ``kcore_peel`` splits a graph over a thread-block cluster of c CTAs.
+  Each CTA packs the rows of its own 32-vertex words, keeps a replicated,
+  triple-buffered alive vector, sends its new words to every CTA once per
+  sweep and decides alone when to stop.  The emulation follows that data
+  flow (with the fastest CTA storing its next sweep's words before its
+  peers compare) and is held against ``repro``'s ``kcore_peel_ref``
+  iterated to its fixpoint and the port's plain fixpoint, on Table 1
+  surrogates and on seeded random graphs of ragged N.  The pack's 16-byte
+  arithmetic (four bytes to four bits, two lanes' halves to one word) is
+  held against a direct packing.
+* ``cluster_size``, the selector of c, at the main path's shapes.
+* ``pairwise_l1`` forms each output as chunk partials (0 + 16 terms in d
+  order) added to 0 in chunk order, in both its 64 x 64 layout and its
+  small-grid layout (16 x 16 tiles, 8 chunks a round).  The two emulations
+  agree bitwise, and with ``repro``'s reference within the L1 tolerance.
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.data.graphs import load_large_network
+from repro.kernels import ref as ref_j
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.kcore_peel import MAX_CLUSTER, cluster_size
+
+_POP8 = torch.tensor([bin(i).count("1") for i in range(256)],
+                     dtype=torch.int64)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this file: its thousands of small torch ops
+    gain nothing from threads, and when test files run in parallel worker
+    processes, threads in every worker oversubscribe the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _popcount(words):
+    """Set bits of int64 tensors holding 32-bit words."""
+    return sum(_POP8[(words >> s) & 0xFF] for s in (0, 8, 16, 24))
+
+
+def _words(bits):
+    """(..., N) bool -> (..., ceil(N/32)) int64 words: vertex 32x + j at bit
+    j of word x, the kernel's packing."""
+    n = bits.shape[-1]
+    w = (n + 31) // 32
+    pad = torch.zeros((*bits.shape[:-1], 32 * w), dtype=torch.int64)
+    pad[..., :n] = bits.to(torch.int64)
+    return (pad.view(*bits.shape[:-1], w, 32) << torch.arange(32)).sum(-1)
+
+
+def _warps(n, c):
+    """Warps per CTA, as ``csrc/kcore_peel.cu`` ``layout`` sets them."""
+    w = (n + 31) // 32
+    words_max = -(-w // c)
+    return min(32, max(words_max, -(-(32 * words_max * w) // 64)))
+
+
+def _cluster_peel(adj, alive, k, sweeps, c):
+    """One graph through the kernel's cluster sweep: (N, N) bool adjacency,
+    (N,) bool alive -> (N,) bool, and the sweeps run."""
+    n = alive.shape[0]
+    w = (n + 31) // 32
+    warps = _warps(n, c)
+    rows = _words(adj)  # row u, word y; CTA r reads only its own rows
+    ctas = []
+    for r in range(c):
+        x0, x1 = r * w // c, (r + 1) * w // c
+        lw = x1 - x0
+        ctas.append({"x0": x0, "x1": x1,
+                     "groups": max(1, min(warps // lw, w)) if lw else 1,
+                     "bufs": [_words(alive), None, None]})
+
+    def new_words(cta, cur):
+        """The CTA's own new words from its buffer ``cur``: degrees as
+        popcounts summed over ``groups`` word slices of each row."""
+        alive_w = cta["bufs"][cur]
+        out = {}
+        for x in range(cta["x0"], cta["x1"]):
+            u = torch.arange(32 * x, min(32 * x + 32, n))
+            deg = torch.zeros(len(u), dtype=torch.int64)
+            for p in range(cta["groups"]):
+                y0 = p * w // cta["groups"]
+                y1 = (p + 1) * w // cta["groups"]
+                deg += _popcount(rows[u, y0:y1] & alive_w[y0:y1]).sum(-1)
+            old = (alive_w[x] >> (u - 32 * x)) & 1
+            keep = (old == 1) & (deg >= k)
+            out[x] = int((keep.to(torch.int64) << (u - 32 * x)).sum())
+        return out
+
+    def exchange(words, buf):
+        """Every CTA stores its words into buffer ``buf`` of every CTA."""
+        for cta in ctas:
+            if cta["bufs"][buf] is None:
+                cta["bufs"][buf] = torch.zeros(w, dtype=torch.int64)
+            for x, word in words.items():
+                cta["bufs"][buf][x] = word
+
+    cur, s = 0, 0
+    words = [new_words(cta, cur) for cta in ctas]
+    while True:
+        nxt = (cur + 1) % 3
+        for cw in words:
+            exchange(cw, nxt)
+        # the cluster barrier; then the fastest CTA decides and, going on,
+        # stores its next sweep's words before its peers compare
+        s += 1
+        go_on = [bool((cta["bufs"][cur] != cta["bufs"][nxt]).any())
+                 and (sweeps == 0 or s < sweeps) for cta in ctas[:1]]
+        early = new_words(ctas[0], nxt) if go_on[0] else None
+        if early is not None:
+            exchange(early, (nxt + 1) % 3)
+        go_on += [bool((cta["bufs"][cur] != cta["bufs"][nxt]).any())
+                  and (sweeps == 0 or s < sweeps) for cta in ctas[1:]]
+        assert len(set(go_on)) == 1, "the CTAs of a cluster disagree"
+        for cta in ctas:
+            assert torch.equal(cta["bufs"][nxt], ctas[0]["bufs"][nxt])
+        cur = nxt
+        if not go_on[0]:
+            break
+        words = [early] + [new_words(cta, cur) for cta in ctas[1:]]
+        # the early words are final: the next exchange stores them again
+    out = torch.zeros(n, dtype=torch.bool)
+    for cta in ctas:
+        for u in range(32 * cta["x0"], min(32 * cta["x1"], n)):
+            out[u] = bool((cta["bufs"][cur][u // 32] >> (u % 32)) & 1)
+    return out, s
+
+
+def _repro_fixpoint(adj, alive, k):
+    """``repro``'s one-sweep reference, iterated until nothing changes."""
+    cur = jax.numpy.asarray(alive)
+    a = jax.numpy.asarray(adj)
+    while True:
+        nxt = ref_j.kcore_peel_ref(a, cur, k)
+        if bool((nxt == cur).all()):
+            return np.asarray(nxt)
+        cur = nxt
+
+
+def _check_cluster_peel(adj, alive, k):
+    """Every cluster size against repro's fixpoint and the port's plain
+    fixpoint (and one sweep against one plain sweep), bitwise."""
+    want = _repro_fixpoint(adj, alive, k)
+    a, m = torch.from_numpy(adj), torch.from_numpy(alive)
+    plain = ops.kcore_peel(a[None], m[None], k, sweeps=0)[0]
+    np.testing.assert_array_equal(plain.numpy(), want)
+    one = ref.kcore_peel_ref(a[None], m[None], k)[0]
+    for c in (1, 2, 4, MAX_CLUSTER):
+        got, _ = _cluster_peel(a, m, k, 0, c)
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert torch.equal(_cluster_peel(a, m, k, 1, c)[0], one)
+
+
+@pytest.mark.parametrize("name", ["com-youtube", "web-Stanford",
+                                  "p2pGnutella31"])
+def test_cluster_sweep_on_table1_surrogates(name):
+    g = load_large_network(name, jax.random.PRNGKey(3), n_pad=1024)
+    adj, alive = np.array(g.adj[0]), np.array(g.mask[0])
+    for k in (2, 3):
+        _check_cluster_peel(adj, alive, k)
+
+
+@pytest.mark.parametrize("n", [45, 100, 1000, 1056])
+def test_cluster_sweep_on_ragged_random_graphs(n):
+    rng = np.random.default_rng(n)
+    adj = np.triu(rng.random((n, n)) < 5.0 / n, 1)
+    adj = adj | adj.T
+    alive = rng.random(n) < 0.9
+    adj &= alive[:, None] & alive[None, :]
+    for k in (2, 3, n + 1):
+        _check_cluster_peel(adj, alive, k)
+
+
+def test_cluster_sweep_sweeps_and_dead_graphs():
+    rng = np.random.default_rng(5)
+    n = 300
+    adj = np.triu(rng.random((n, n)) < 4.0 / n, 1)
+    adj = torch.from_numpy(adj | adj.T)
+    alive = torch.ones(n, dtype=torch.bool)
+    for c in (1, 2, 4, 8):
+        # two sweeps are two plain sweeps; a converged mask stays as it is
+        one = ref.kcore_peel_ref(adj[None], alive[None], 2)[0]
+        two = ref.kcore_peel_ref(adj[None], one[None], 2)[0]
+        assert torch.equal(_cluster_peel(adj, alive, 2, 2, c)[0], two)
+        fix, s = _cluster_peel(adj, alive, 2, 0, c)
+        again, s2 = _cluster_peel(adj, fix, 2, 5, c)
+        assert torch.equal(again, fix) and s2 == 1 and s >= 2
+        dead = torch.zeros(n, dtype=torch.bool)
+        assert not bool(_cluster_peel(adj, dead, 2, 0, c)[0].any())
+        assert not bool(_cluster_peel(adj, alive, n + 1, 0, c)[0].any())
+
+
+def _nibble(v):
+    """``csrc/kcore_peel.cu`` ``nibble``: the nonzero bytes of 32-bit words
+    as 4 bits, through a per-byte compare (``__vcmpne4``) and a multiply
+    that gathers the four byte flags into the top byte."""
+    b = v.view(np.uint8).reshape(*v.shape, 4)
+    ne = (b != 0).astype(np.uint32) * 0xFF
+    flags = (ne[..., 0] | ne[..., 1] << 8 | ne[..., 2] << 16
+             | ne[..., 3] << 24) & np.uint32(0x01010101)
+    return (flags * np.uint32(0x01020408)) >> np.uint32(24)
+
+
+@pytest.mark.parametrize("n", [16, 64, 320, 1040])
+def test_pack_of_16_byte_loads_matches_the_rows(n):
+    # two lanes read 16 columns each (four 32-bit words); their 16-bit
+    # halves join into the row's 32-vertex word, bytes of any nonzero value
+    # counting as edges; a half past N reads nothing
+    rng = np.random.default_rng(n)
+    rows = (rng.random((40, n)) < 0.3) * rng.integers(1, 256, (40, n))
+    rows = rows.astype(np.uint8)
+    w = (n + 31) // 32
+    padded = np.zeros((40, 32 * w), np.uint8)
+    padded[:, :n] = rows
+    halves = []
+    for half in range(2 * w):
+        v = padded[:, 16 * half:16 * half + 16].copy().view(np.uint32)
+        nib = _nibble(v)
+        halves.append(nib[:, 0] | nib[:, 1] << 4 | nib[:, 2] << 8
+                      | nib[:, 3] << 12)
+    got = [halves[2 * x] | halves[2 * x + 1] << 16 for x in range(w)]
+    want = _words(torch.from_numpy(rows != 0)).numpy()
+    np.testing.assert_array_equal(np.stack(got, 1).astype(np.int64), want)
+
+
+@pytest.mark.parametrize("b,n,sms,want", [
+    (4096, 64, 132, 1),     # n64 serve rung: the batch fills the SMs
+    (256, 320, 132, 1),     # DD rung
+    (16, 1024, 132, 8),     # Table 1
+    (17, 1024, 132, 4),
+    (33, 1024, 132, 4),
+    (66, 1024, 132, 2),
+    (67, 1024, 132, 1),
+    (1, 64, 132, 2),        # two words: a CTA keeps at least one
+    (1, 32, 132, 1),
+    (16, 1024, 8, 1),       # a card of 8 SMs
+    (1, 1024, 8, 8),
+    (2, 1024, 8, 4),
+    (4096, 64, 8, 1),
+])
+def test_cluster_size_selector(b, n, sms, want):
+    assert cluster_size(b, n, sms) == want
+
+
+def _l1_layout(x, y, tile, chunks_per_round):
+    """The kernel's L1 Gram in one layout: output tiles of ``tile`` rows and
+    columns, zero-padded past M, N and D; each 16-wide D chunk's partial is
+    0 plus its 16 terms in d order, and the partials are added to 0 in chunk
+    order (``chunks_per_round`` = 1: after each chunk, as the 64 x 64
+    layout does; 8: a round's partials stored, then added, as the
+    small-grid layout does)."""
+    (m, d), n = x.shape, y.shape[0]
+    chunks = -(-d // 16)
+    xp = torch.zeros((-(-m // tile) * tile, chunks * 16))
+    yp = torch.zeros((-(-n // tile) * tile, chunks * 16))
+    xp[:m, :d], yp[:n, :d] = x, y
+    out = torch.empty((xp.shape[0], yp.shape[0]))
+    for i0 in range(0, xp.shape[0], tile):
+        for j0 in range(0, yp.shape[0], tile):
+            a, b = xp[i0:i0 + tile], yp[j0:j0 + tile]
+            acc = torch.zeros((tile, tile))
+            for r0 in range(0, chunks, chunks_per_round):
+                parts = []
+                for q in range(r0, min(r0 + chunks_per_round, chunks)):
+                    part = torch.zeros((tile, tile))
+                    for c in range(16 * q, 16 * q + 16):
+                        part = part + (a[:, None, c] - b[None, :, c]).abs()
+                    parts.append(part)
+                for part in parts:
+                    acc = acc + part
+            out[i0:i0 + tile, j0:j0 + tile] = acc
+    return out[:m, :n]
+
+
+@pytest.mark.parametrize("m,n,d", [(72, 72, 372), (33, 129, 17), (5, 70, 1),
+                                   (65, 64, 200)])
+def test_l1_chunk_order_is_the_same_in_both_layouts(m, n, d):
+    rng = np.random.default_rng(m * n + d)
+    x = torch.from_numpy(rng.uniform(0, 64, (m, d)).astype(np.float32))
+    y = torch.from_numpy(rng.uniform(0, 64, (n, d)).astype(np.float32))
+    big = _l1_layout(x, y, 64, 1)
+    small = _l1_layout(x, y, 16, 8)
+    assert torch.equal(big, small)
+    # the same rows of a larger launch: an output depends on its rows only
+    assert torch.equal(_l1_layout(x[m // 2:], y[:1], 16, 8),
+                       big[m // 2:, :1])
+    tol = 1e-5 * (x.abs().sum(1)[:, None] + y.abs().sum(1)[None, :]) + 1e-6
+    want = torch.from_numpy(np.asarray(ref_j.pairwise_l1_ref(x.numpy(),
+                                                             y.numpy())))
+    assert bool(((big - want).abs() <= tol).all())
+    assert bool(((big - ops.pairwise_l1(x, y)).abs() <= tol).all())
