@@ -44,11 +44,13 @@ run in another order.  The kernel checks also run ``kcore_peel`` at every
 cluster size its selector returns on this card and hold both
 ``pairwise_l1`` layouts against each other bitwise.  Then one n64
 execution, one n64 clustering call, one index run (and the sharded LSH
-query alone), one full-tensor Sinkhorn call and one DD-rung exact_w call
-are profiled for device time by kernel, and each kernel is timed at the
-largest input each phase gave it (``kcore_peel`` and ``pairwise_l1`` also
-on the device, behind a sleep that keeps the host out of the time, with
-the cluster size or layout the launch took).  Each phase prints one JSON line; any failure exits
+query alone), one full-tensor Sinkhorn call and DD-rung exact_w calls in
+both layouts are profiled for device time by kernel, and each kernel is
+timed at the largest input each phase gave it (``kcore_peel``,
+``pairwise_l1`` and the auction kernels also on the device, behind a sleep
+that keeps the host out of the time, with the cluster size or layout the
+launch took; the auction kernels also per round of their slowest
+problem).  Each phase prints one JSON line; any failure exits
 non-zero.  The last two lines are the ``kernels`` summary (launches on the
 main path, error against the plain version, times and bounds) after the
 card's name and power limit, and the ``ok`` line.
@@ -1854,11 +1856,15 @@ def phase_profile_sinkhorn(d1, d2) -> dict:
 
 def phase_profile_exact(d1, d2) -> dict:
     """``_profile`` of one steady ``exact_n320`` call at the registry's
-    default layout (collapsed, K = 64)."""
+    default layout (collapsed, K = 64), and of three in the expanded one
+    (``collapse="off"``, M = 128)."""
     from repro_torch.metrics import compare
 
-    return _profile("profile_exact", lambda: compare(
+    out = _profile("profile_exact", lambda: compare(
         d1, d2, metric="exact_w", n_points=64))
+    out["expanded"] = _profile("profile_exact_expanded", lambda: compare(
+        d1, d2, metric="exact_w", n_points=64, collapse="off"), reps=3)
+    return out
 
 
 def _time_kcore(adj, alive, k, sweeps) -> dict:
@@ -2138,7 +2144,9 @@ def _time_sinkhorn_pair_sum(xp, yp, f, g, log_a, log_b, e_t, mode) -> dict:
 
 def _auction_row(name, cost, got, want, scans, io_bytes, kernel, plain):
     """A timer row of an auction kernel on (B, M, M) ``cost``: agreement
-    with the plain version, rounds, kernel and plain times, and the bound:
+    with the plain version, rounds, kernel (between events and on the
+    device, and the device time over the slowest problem's rounds) and
+    plain times, and the bound:
     ``io_bytes`` (costs and inputs in, outputs out) against
     AUCTION_SCAN_OPS * M lane operations for each row or column scan this
     input needs (counted by the plain solver, which makes the kernel's
@@ -2150,12 +2158,15 @@ def _auction_row(name, cost, got, want, scans, io_bytes, kernel, plain):
     rounds = want[3]
     m = cost.shape[-1]
     bt, by = bound(io_bytes, AUCTION_SCAN_OPS * m * int(scans.sum()))
+    ms, dev_ms = cuda_ms(kernel), device_ms(kernel)
     return {"name": name, "shape": list(cost.shape), "max_abs_err": err,
             "outputs_differing": differ,
             "tolerance": "bitwise but the totals: " + AUCTION_TOTAL_TOLERANCE,
             "within_tolerance": differ == 0 and ok,
             "rounds_sum": int(rounds.sum()), "rounds_max": int(rounds.max()),
-            "scans": int(scans.sum()), "ms": cuda_ms(kernel),
+            "scans": int(scans.sum()), "ms": ms, "device_ms": dev_ms,
+            # a launch lasts as long as its slowest problem's rounds
+            "us_per_round": dev_ms * 1e3 / max(1, int(rounds.max())),
             "plain_ms": cuda_ms(plain, reps=1), "library_ms": None,
             "bound_ms": bt, "bound_by": by}
 

@@ -37,49 +37,52 @@
 //   reverse round's "best offer per person, ties to the lowest object" works
 //   the same way.
 //
-// auction_lap_kernel (expanded): one CTA per problem, blockDim =
-//   min(1024, 32·⌈M/32⌉); thread t owns person row t (and t + blockDim, ...)
-//   and scans it alone, one value after another; block barriers between the
-//   phases of a round.
-//
-// auction_collapsed_kernel: the scans are shared by a segment of S lanes (8,
-//   16 or 32).  Each lane walks j = lane, lane + S, ... and keeps the top two
-//   of its values as the serial scan keeps them (strictly greater replaces,
-//   so the first of equal values stays); the segment then merges: at S = 32
-//   with warp reductions (the largest order-preserving value bits, ±0 alike,
-//   then the lowest index holding them, then the same over every lane's best
-//   candidate but that index), at S < 32 with xor shuffles of 64-bit keys
-//   (value bits above ~j).  Either gives the lowest index among the maxima
-//   (js) and, over j != js, the lowest index among the next maxima: what one
-//   thread's serial scan keeps when equal values arrive.  v1 and v2 are
-//   then recomputed at those two indices with the serial scan's own
-//   subtraction, so they are its bits, ±0 included (an all -inf row gives
-//   js = 0; M = 1 gives v2 = -inf).  Row maxima (the initial profits and the
-//   ε-CS reset) are fmaxf trees: their zero sign reaches no output, since
-//   every use compares them or adds a nonzero ε.
-//   K <= 32: one warp per problem, kWarpProblems problems per CTA, one slot
-//   per lane, S the least of 8, 16, 32 that covers K; the warp runs alone
-//   (__syncwarp, warp votes), so each problem stops at its own round.
-//   K > 32: one CTA per problem of max(kWideThreads, 32·⌈K/32⌉) threads, a
-//   warp per segment, so up to blockDim/32 bidders scan at once.
+// Both kernels share one design.  The scans are shared by a segment of S
+//   lanes (8, 16 or 32).  Each lane walks j = lane, lane + S, ... and keeps
+//   the top two of its values as the serial scan keeps them (strictly
+//   greater replaces, so the first of equal values stays); the segment then
+//   merges: at S = 32 with warp reductions (the largest order-preserving
+//   value bits, ±0 alike, then the lowest index holding them, then the same
+//   over every lane's best candidate but that index), at S < 32 with xor
+//   shuffles of 64-bit keys (value bits above ~j).  Either gives the lowest
+//   index among the maxima (js) and, over j != js, the lowest index among
+//   the next maxima: what one thread's serial scan keeps when equal values
+//   arrive.  v1 and v2 are then recomputed at those two indices with the
+//   serial scan's own subtraction, so they are its bits, ±0 included (an
+//   all -inf row gives js = 0; M = 1 gives v2 = -inf).  Row maxima (the
+//   initial profits and the ε-CS reset) are fmaxf trees: their zero sign
+//   reaches no output, since every use compares them or adds a nonzero ε.
+//   M <= 32: one warp per problem, kWarpProblems problems per CTA, one slot
+//   per lane; the warp runs alone (__syncwarp, warp votes), so each problem
+//   stops at its own round.  M > 32: one CTA per problem, so up to
+//   blockDim/S bidders scan at once.  The collapsed solver takes S the least
+//   of 8, 16, 32 that covers M in a warp and 32 in a CTA of at least
+//   kWideThreads; the expanded one, whose rounds have more bidders, S = 8 in
+//   a warp and 16 in a CTA that the launcher sizes from B, M and the SM
+//   count.
 //   A round has two barriers.  Bids: each free person (a stale object in a
 //   reverse round) is scanned by a segment, the e-th of them found through
 //   the round's bit masks and slot lists; the segment records its bid (or
 //   offer) and target and raises the target's key in this round's key
-//   buffer.  Barrier.  Then
-//   each slot's owner thread updates the slot as a person and as an object
-//   from the keys and bids alone (a person won its target, was evicted, or
-//   accepted an offer; an object went to its highest bidder, was released,
-//   or had its offer accepted), so no thread writes another's slot and no
-//   barrier is needed before the survey: it compares the slot with the
-//   state a round and two rounds back (the livelock exits), keeps the
-//   copies, clears the slot's key in the other buffer, and the warp ballots
-//   the next round's free persons and stale objects into the bit masks, each
-//   such slot writing itself into a list at its rank among the word's bits
-//   (one popcount, no atomics).
+//   buffer.  Barrier.  Then each slot's owner thread updates the slot as a
+//   person and as an object from the keys and bids alone (a person won its
+//   target, was evicted, or accepted an offer; an object went to its
+//   highest bidder, was released, or had its offer accepted), so no thread
+//   writes another's slot and no barrier is needed before the survey: it
+//   flags a slot whose state moved, clears the slot's key in the other
+//   buffer, and the warp ballots the next round's free persons (and stale
+//   objects) into the bit masks, each such slot writing itself into a list
+//   at its rank among the word's bits (one popcount, no atomics).
 //   Barrier; popcounts of the masks and an OR of the flags give the next
-//   round's termination tests, in the serial order: converged (no free
-//   person, no stale object), round cap, stalled.
+//   round's termination tests, in each solver's serial order.
+//
+// auction_lap_kernel (expanded): every free person bids; the stop tests are
+//   converged (no free person), the round cap, and stalled: an unchanged
+//   price vector (the increments fell below f32 resolution).
+// auction_collapsed_kernel: forward rounds, reverse rounds (stale objects
+//   offer), OUT; the stop tests are converged (no free person, no stale
+//   object), the round cap, and two livelock exits: the state unchanged, or
+//   equal to the state two rounds back.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -92,8 +95,8 @@ constexpr int kOut = -2;  // collapsed code: person at the OUT pseudo-object
 // room for the static reduction scratch
 constexpr int kSharedBudget = 232448 - 1024;
 constexpr unsigned kFull = 0xffffffffu;
-// the collapsed solver: problems of K <= 32 slots run one per warp, this
-// many to a CTA; wider ones one per CTA of at least kWideThreads threads
+// problems of M <= 32 slots run one per warp, this many to a CTA; wider
+// collapsed ones one per CTA of at least kWideThreads threads
 constexpr int kWarpProblems = 4;
 constexpr int kWideThreads = 512;
 // survey flag bits: some slot differs from the state a round / two rounds back
@@ -102,13 +105,16 @@ constexpr unsigned kMoved1 = 1u, kMoved2 = 2u;
 __host__ __device__ inline int pitch_of(int m) { return m | 1; }
 
 // per-problem state bytes (16-byte aligned) of each solver: the expanded
-// one's keys and four vectors of length m; the collapsed one's two key
-// buffers, four f32 and three i32 vectors (the state, the bids and their
-// targets), three bit masks, two slot lists and the two valid-slot masks
+// one's two key buffers, two f32 and two i32 vectors (the prices, the bids,
+// their targets, p2o), two bit masks and a slot list; the collapsed one's
+// two key buffers, four f32 and three i32 vectors (the state, the bids and
+// their targets), three bit masks, two slot lists and the two valid-slot
+// masks
 __host__ __device__ inline size_t state_bytes(int m, bool collapsed) {
+  const size_t words = (m + 31) / 32;
   size_t bytes = collapsed ? 16 * (size_t)m + 4 * 7 * (size_t)m +
-                                 268 * (size_t)((m + 31) / 32) + 2 * (size_t)m
-                           : 8 * (size_t)m + 4 * 4 * (size_t)m;
+                                 268 * words + 2 * (size_t)m
+                           : 16 * (size_t)m + 4 * 4 * (size_t)m + 136 * words;
   return (bytes + 15) & ~(size_t)15;
 }
 
@@ -120,9 +126,9 @@ inline bool fits_shared(int m, bool collapsed) {
   return state_bytes(m, collapsed) + cost_bytes(m) <= (size_t)kSharedBudget;
 }
 
-// shared bytes of one warp's problem in the collapsed solver's warp layout
-__host__ __device__ inline size_t warp_region_bytes(int m) {
-  return state_bytes(m, true) + ((cost_bytes(m) + 15) & ~(size_t)15);
+// shared bytes of one warp's problem in a solver's warp layout
+__host__ __device__ inline size_t warp_region_bytes(int m, bool collapsed) {
+  return state_bytes(m, collapsed) + ((cost_bytes(m) + 15) & ~(size_t)15);
 }
 
 // order-preserving bits of a float, above 0 for every one (-inf:
@@ -148,169 +154,6 @@ __device__ float block_max(float x, float* s_red) {
   __syncthreads();  // s_red is free again
   return x;
 }
-
-// Scan values v(j) = row[j*stride] - sub[j], j < m: the first argmax js, the
-// maximum v1 and the maximum over j != js, v2 (-inf when there is none).
-// An all -inf row gives js = 0, as jnp.argmax does.
-__device__ __forceinline__ void top2(const float* row, int stride,
-                                     const float* sub, int m, int& js,
-                                     float& v1, float& v2) {
-  js = 0;
-  v1 = -INFINITY;
-  v2 = -INFINITY;
-  for (int j = 0; j < m; ++j) {
-    const float v = __fsub_rn(row[(size_t)j * stride], sub[j]);
-    if (v > v1) {
-      v2 = v1;
-      v1 = v;
-      js = j;
-    } else if (v > v2) {
-      v2 = v;
-    }
-  }
-}
-
-__device__ __forceinline__ float row_max(const float* row, const float* sub,
-                                         int m) {
-  float best = -INFINITY;
-  for (int j = 0; j < m; ++j) best = fmaxf(best, __fsub_rn(row[j], sub[j]));
-  return best;
-}
-
-template <bool kSharedCost>
-__global__ void __launch_bounds__(kMaxThreads)
-auction_lap_kernel(const float* __restrict__ cost,
-                   const float* __restrict__ ladder, float* scratch,
-                   int* __restrict__ assign_out, float* __restrict__ total_out,
-                   bool* __restrict__ conv_out, int* __restrict__ rounds_out,
-                   int m, int n_scales, int max_rounds) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float s_red[32];
-  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-  const int pitch = pitch_of(m);
-  unsigned long long* key = reinterpret_cast<unsigned long long*>(smem);
-  float* price = reinterpret_cast<float*>(key + m);
-  float* bidv = price + m;
-  int* p2o = reinterpret_cast<int*>(bidv + m);
-  int* o2p = p2o + m;
-  float* a = kSharedCost
-                 ? reinterpret_cast<float*>(smem + state_bytes(m, false))
-                 : scratch + (size_t)b * m * pitch;
-  const float* c = cost + (size_t)b * m * m;
-  int* assign = assign_out + (size_t)b * m;
-
-  float mx = 0.f;
-  for (int e = tid; e < m * m; e += nt) mx = fmaxf(mx, fabsf(c[e]));
-  const float c_scale = fmaxf(block_max(mx, s_red), 1e-30f);
-  for (int e = tid; e < m * m; e += nt) {
-    const int i = e / m, j = e - i * m;
-    a[(size_t)i * pitch + j] = -__fdiv_rn(c[e], c_scale);
-  }
-  for (int t = tid; t < m; t += nt) {
-    key[t] = 0ull;
-    price[t] = 0.f;
-    p2o[t] = -1;
-  }
-  __syncthreads();
-
-  int rounds = 0;
-  bool any_conv = false, conv_fine = false;
-  for (int s = 0; s < n_scales; ++s) {
-    const float eps = ladder[s];
-    // partial reset (ε-CS): keep assignments still within eps of each
-    // person's best value at the new scale
-    for (int i = tid; i < m; i += nt) {
-      const int p = p2o[i];
-      if (p < 0) continue;
-      const float* row = a + (size_t)i * pitch;
-      const float best = row_max(row, price, m);
-      const float mine = __fsub_rn(row[p], price[p]);
-      if (!(mine >= __fsub_rn(best, eps))) p2o[i] = -1;
-    }
-    __syncthreads();
-    for (int j = tid; j < m; j += nt) o2p[j] = -1;
-    __syncthreads();
-    for (int i = tid; i < m; i += nt)
-      if (p2o[i] >= 0) o2p[p2o[i]] = i;
-    __syncthreads();
-
-    int it = 0;
-    bool stalled = false;
-    bool conv = false;
-    for (;;) {
-      bool free_mine = false;
-      for (int i = tid; i < m; i += nt) free_mine |= p2o[i] < 0;
-      conv = !__syncthreads_or(free_mine);
-      if (conv || it >= max_rounds || stalled) break;
-      // every free person bids its best value + eps over its second best
-      for (int i = tid; i < m; i += nt) {
-        if (p2o[i] >= 0) continue;
-        const float* row = a + (size_t)i * pitch;
-        int js;
-        float v1, v2;
-        top2(row, 1, price, m, js, v1, v2);
-        if (!isfinite(v2)) v2 = v1;  // M == 1
-        const float bid = __fadd_rn(__fsub_rn(row[js], v2), eps);
-        bidv[i] = bid;
-        atomicMax(&key[js], bid_key(bid, m - 1 - i));
-      }
-      __syncthreads();
-      // each object with bids goes to the highest, evicting its owner
-      bool same = true;
-      for (int j = tid; j < m; j += nt) {
-        const unsigned long long k = key[j];
-        if (k == 0ull) continue;
-        key[j] = 0ull;
-        const int w = m - 1 - (int)(k & 0xffffffffu);
-        const float bid = bidv[w];
-        same &= bid == price[j];
-        price[j] = bid;
-        const int old = o2p[j];
-        if (old >= 0) p2o[old] = -1;
-        o2p[j] = w;
-        p2o[w] = j;
-      }
-      // an unchanged price vector: the increments fell below f32
-      // resolution and no later round can make progress
-      stalled = __syncthreads_and(same);
-      ++it;
-    }
-    rounds += it;
-    if (conv) {
-      for (int i = tid; i < m; i += nt) assign[i] = p2o[i];
-      any_conv = true;
-    }
-    if (s >= n_scales - 2) conv_fine |= conv;
-  }
-  if (!any_conv)
-    for (int i = tid; i < m; i += nt) assign[i] = p2o[i];
-  // deterministic completion of still-free rows: the k-th free person takes
-  // the k-th free object (o2p now flags owned objects)
-  __syncthreads();
-  for (int j = tid; j < m; j += nt) o2p[j] = 0;
-  __syncthreads();
-  for (int i = tid; i < m; i += nt)
-    if (assign[i] >= 0) o2p[assign[i]] = 1;
-  __syncthreads();
-  if (tid == 0) {
-    int next = 0;
-    float total = 0.f;
-    for (int i = 0; i < m; ++i) {
-      int p = assign[i];
-      if (p < 0) {
-        while (next < m && o2p[next]) ++next;
-        p = next++;
-        assign[i] = p;
-      }
-      total = __fadd_rn(total, c[(size_t)i * m + p]);
-    }
-    total_out[b] = total;
-    conv_out[b] = conv_fine;
-    rounds_out[b] = rounds;
-  }
-}
-
-// ------------------------------------------------- the collapsed solver
 
 // The threads that solve one problem: a warp (kWarp) or the whole CTA.
 template <bool kWarp>
@@ -445,6 +288,218 @@ struct Survey {
 // a forward bidder's target when it took OUT instead
 constexpr int kTookOut = -2;
 
+// ------------------------------------------------- the expanded solver
+
+template <bool kWarp, int S, bool kSharedCost>
+__global__ void __launch_bounds__(kMaxThreads)
+auction_lap_kernel(const float* __restrict__ cost,
+                   const float* __restrict__ ladder, float* scratch,
+                   int* __restrict__ assign_out, float* __restrict__ total_out,
+                   bool* __restrict__ conv_out, int* __restrict__ rounds_out,
+                   int batch, int m, int n_scales, int max_rounds) {
+  // slots per thread: one, but two where m may reach 2 * blockDim
+  constexpr int kSlots = kSharedCost ? 1 : 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float s_red[32];
+  const Group<kWarp> g;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = kWarp ? blockIdx.x * kWarpProblems + warp : blockIdx.x;
+  if (b >= batch) return;  // warp layout: a whole warp without a problem
+  const int tid = g.rank(), nt = g.size();
+  const int seg = tid / S, lis = tid % S, nseg = nt / S;
+  const int pitch = pitch_of(m), words = (m + 31) / 32;
+  unsigned char* base =
+      smem + (kWarp ? warp * warp_region_bytes(m, false) : 0);
+  // bid keys, two buffers: a round uses one and clears the other
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(base);
+  float* price = reinterpret_cast<float*>(keys + 2 * m);
+  float* bidv = price + m;  // a bidder's bid
+  int* tgt = reinterpret_cast<int*>(bidv + m);  // a bidder's object
+  int* p2o = tgt + m;
+  // the round's free persons and the survey's flags, by 32-slot word; each
+  // word's free persons in slot order, at 32 * word + rank (nth_slot)
+  unsigned* free_mask = reinterpret_cast<unsigned*>(p2o + m);
+  unsigned* moved = free_mask + words;
+  int* free_list = reinterpret_cast<int*>(moved + words);
+  float* a = kSharedCost
+                 ? reinterpret_cast<float*>(base + state_bytes(m, false))
+                 : scratch + (size_t)b * m * pitch;
+  const float* c = cost + (size_t)b * m * m;
+
+  float mx = 0.f;
+  for (int e = tid; e < m * m; e += nt) mx = fmaxf(mx, fabsf(c[e]));
+  const float c_scale = fmaxf(g.max(mx, s_red), 1e-30f);
+  for (int e = tid; e < m * m; e += nt) {
+    const int i = e / m, j = e - i * m;
+    a[(size_t)i * pitch + j] = -__fdiv_rn(c[e], c_scale);
+  }
+  for (int t = tid; t < m; t += nt) {
+    keys[t] = keys[m + t] = 0ull;
+    price[t] = 0.f;
+    p2o[t] = -1;
+  }
+  g.sync();
+
+  // Slot t = tid + k * nt of this thread, k < kSlots: its price and p2o
+  // live here in registers, published to shared memory for the scans and
+  // the reset; rep is the matching reported at the end.
+  float r_price[kSlots];
+  int r_p2o[kSlots], rep[kSlots];
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) rep[k] = -1;
+
+  // Each slot's owner, after the bids (update; keys of buffer `parity`):
+  // the round's update of the slot as a person (won its target, or was
+  // evicted from its object) and as an object (went to its highest
+  // bidder), from the keys and the bids alone; then (and without update,
+  // at the start of a scale, from shared memory) the survey: flag a price
+  // that moved and mark the next round's free persons.  Ends with the
+  // group synchronised and every thread holding the counts and the flags.
+  auto slot_pass = [&](bool update, int parity) -> Survey {
+    const unsigned long long* key = keys + parity * m;
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      const int t = tid + k * nt, w = (k * nt >> 5) + (tid >> 5);
+      bool is_free = false;
+      unsigned bits = 0u;
+      if (t < m) {
+        float pr = update ? r_price[k] : price[t];
+        int q = update ? r_p2o[k] : p2o[t];
+        if (update) {
+          if (q < 0) {  // a bidder: won its target, or stays free
+            const int j = tgt[t];
+            if (key_winner(key[j], m) == t) q = j;
+          } else if (key[q] != 0ull) {
+            q = -1;  // evicted
+          }
+          const unsigned long long ko = key[t];
+          if (ko) {  // the object goes to its highest bidder
+            const float bid = bidv[key_winner(ko, m)];
+            if (!(bid == pr)) bits = kMoved1;
+            pr = bid;
+          }
+          keys[(parity ^ 1) * m + t] = 0ull;
+          price[t] = pr;
+          p2o[t] = q;
+        }
+        r_price[k] = pr;
+        r_p2o[k] = q;
+        is_free = q < 0;
+      }
+      const unsigned fm = __ballot_sync(kFull, is_free);
+      if (is_free) free_list[32 * w + __popc(fm & ((1u << lane) - 1u))] = t;
+      bits = __reduce_or_sync(kFull, bits);
+      if (lane == 0 && w < words) {
+        free_mask[w] = fm;
+        moved[w] = bits;
+      }
+    }
+    g.sync();
+    Survey sv{0, 0, __popc(free_mask[0]), 0, moved[0]};
+    sv.n_free = sv.free0;
+#pragma unroll 1
+    for (int w = 1; w < words; ++w) {
+      sv.n_free += __popc(free_mask[w]);
+      sv.moved |= moved[w];
+    }
+    return sv;
+  };
+
+  int rounds = 0, parity = 0;
+  bool any_conv = false, conv_fine = false;
+  for (int s = 0; s < n_scales; ++s) {
+    const float eps = ladder[s];
+    // partial reset (ε-CS): keep assignments still within eps of each
+    // person's best value at the new scale
+    for (int r0 = 0; r0 < m; r0 += nseg) {
+      const int i = r0 + seg;
+      const int p = i < m ? p2o[i] : -1;
+      const float* row = a + (size_t)(p >= 0 ? i : 0) * pitch;
+      const float best = seg_row_max<S>(row, price, p >= 0 ? m : 0, lis);
+      if (p >= 0 && lis == 0 &&
+          !(__fsub_rn(row[p], price[p]) >= __fsub_rn(best, eps)))
+        p2o[i] = -1;
+    }
+    g.sync();
+
+    int it = 0;
+    bool stalled = false;
+    bool conv = false;
+    for (;;) {
+      // one slot pass a round (a single call site, so it is inlined)
+      const Survey sv = slot_pass(it > 0, parity);
+      if (it > 0) {
+        // an unchanged price vector: the increments fell below f32
+        // resolution and no later round can make progress
+        stalled = !(sv.moved & kMoved1);
+        parity ^= 1;
+      }
+      conv = sv.n_free == 0;
+      if (conv || it >= max_rounds || stalled) break;
+      // every free person bids its best value + eps over its second best
+      unsigned long long* key = keys + parity * m;
+      for (int e0 = 0; e0 < sv.n_free; e0 += nseg) {
+        const bool act = e0 + seg < sv.n_free;
+        const int u =
+            act ? nth_slot(free_list, free_mask, sv.free0, e0 + seg) : 0;
+        const float* row = a + (size_t)u * pitch;
+        int j1, j2;
+        seg_top2<S>(row, 1, price, act ? m : 0, lis, j1, j2);
+        if (!act || lis != 0) continue;
+        const float x1 = row[j1];
+        float v2 = j2 >= 0 ? __fsub_rn(row[j2], price[j2]) : -INFINITY;
+        if (!isfinite(v2)) v2 = __fsub_rn(x1, price[j1]);  // M == 1
+        const float bid = __fadd_rn(__fsub_rn(x1, v2), eps);
+        bidv[u] = bid;
+        tgt[u] = j1;
+        atomicMax(&key[j1], bid_key(bid, m - 1 - u));
+      }
+      g.sync();
+      ++it;
+    }
+    rounds += it;
+    if (conv) any_conv = true;
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k)
+      if (conv || (!any_conv && s == n_scales - 1)) rep[k] = r_p2o[k];
+    if (s >= n_scales - 2) conv_fine |= conv;
+  }
+  // deterministic completion of still-free rows: the k-th free person takes
+  // the k-th free object (p2o now flags owned objects, tgt holds rep)
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    const int t = tid + k * nt;
+    if (t < m) {
+      tgt[t] = rep[k];
+      p2o[t] = 0;
+    }
+  }
+  g.sync();
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k)
+    if (tid + k * nt < m && rep[k] >= 0) p2o[rep[k]] = 1;
+  g.sync();
+  if (tid == 0) {
+    int* assign = assign_out + (size_t)b * m;
+    int next = 0;
+    float total = 0.f;
+    for (int i = 0; i < m; ++i) {
+      int p = tgt[i];
+      if (p < 0) {
+        while (next < m && p2o[next]) ++next;
+        p = next++;
+      }
+      assign[i] = p;
+      total = __fadd_rn(total, c[(size_t)i * m + p]);
+    }
+    total_out[b] = total;
+    conv_out[b] = conv_fine;
+    rounds_out[b] = rounds;
+  }
+}
+
+// ------------------------------------------------- the collapsed solver
+
 template <bool kWarp, int S, bool kSharedCost>
 __global__ void __launch_bounds__(kMaxThreads)
 auction_collapsed_kernel(const float* __restrict__ cbar,
@@ -468,7 +523,7 @@ auction_collapsed_kernel(const float* __restrict__ cbar,
   const int tid = g.rank(), nt = g.size();
   const int seg = tid / S, lis = tid % S, nseg = nt / S;
   const int pitch = pitch_of(m), words = (m + 31) / 32;
-  unsigned char* base = smem + (kWarp ? warp * warp_region_bytes(m) : 0);
+  unsigned char* base = smem + (kWarp ? warp * warp_region_bytes(m, true) : 0);
   // bid keys, two buffers: a round uses one and clears the other
   unsigned long long* keys = reinterpret_cast<unsigned long long*>(base);
   float* price = reinterpret_cast<float*>(keys + 2 * m);
@@ -777,38 +832,24 @@ cudaError_t allow_shared(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
-inline int threads_for(int m) {
-  const int t = (m + 31) / 32 * 32;
-  return t < kMaxThreads ? t : kMaxThreads;
-}
-
-// the collapsed launcher's operands, as the kernel takes them
-struct CollapsedArgs {
-  const float* cbar;
-  const bool* keep1;
-  const bool* keep2;
-  const float* price0;
-  const float* ladder;
-  float* scratch;
-  int* p2o;
-  float* total;
-  bool* conv;
-  int* rounds;
-  float* price;
-  int batch, m, n_scales, max_rounds, rev_every;
+// The launch of a batch of M-wide problems: at M <= 32 a warp per problem,
+// kWarpProblems to a CTA, the segment width S the least of 8, 16, 32 that
+// covers M (kernel 0, 1, 2); above, a CTA of `threads` per problem, a warp
+// per segment, with the costs in shared memory (kernel 3) or in the global
+// scratch (kernel 4, two slots a thread).
+struct Launch {
+  int kernel, blocks, threads;
+  size_t smem;
 };
 
-template <bool kWarp, int S, bool kSharedCost>
-int launch_collapsed(const CollapsedArgs& p, int blocks, int threads,
-                     size_t smem, cudaStream_t s) {
-  auto kernel = auction_collapsed_kernel<kWarp, S, kSharedCost>;
-  const cudaError_t e = allow_shared(kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<blocks, threads, smem, s>>>(
-      p.cbar, p.keep1, p.keep2, p.price0, p.ladder, p.scratch, p.p2o, p.total,
-      p.conv, p.rounds, p.price, p.batch, p.m, p.n_scales, p.max_rounds,
-      p.rev_every);
-  return (int)cudaGetLastError();
+inline Launch launch_of(int batch, int m, int threads, bool collapsed) {
+  if (m <= 32)
+    return {m <= 8 ? 0 : m <= 16 ? 1 : 2,
+            (batch + kWarpProblems - 1) / kWarpProblems, 32 * kWarpProblems,
+            kWarpProblems * warp_region_bytes(m, collapsed)};
+  const bool shared = fits_shared(m, collapsed);
+  return {shared ? 3 : 4, batch, threads,
+          state_bytes(m, collapsed) + (shared ? cost_bytes(m) : 0)};
 }
 
 }  // namespace
@@ -820,21 +861,33 @@ extern "C" int auction_fits_shared(int m, int collapsed) {
   return fits_shared(m, collapsed != 0) ? 1 : 0;
 }
 
+// threads: the CTA of a problem wider than 32 (a multiple of 32, at most
+// 1024, one per slot, or one per two slots past shared memory), from
+// kernels/auction_lap.py::expanded_threads; the warp layout ignores it.
 extern "C" int auction_lap_launch(const void* cost, const void* ladder,
                                   void* scratch, void* assign, void* total,
                                   void* conv, void* rounds, int batch, int m,
-                                  int n_scales, int max_rounds,
+                                  int n_scales, int max_rounds, int threads,
                                   void* stream) {
   if (batch <= 0 || m <= 0) return 0;
-  const bool shared = fits_shared(m, false);
-  const size_t smem = state_bytes(m, false) + (shared ? cost_bytes(m) : 0);
-  cudaError_t e = shared ? allow_shared(auction_lap_kernel<true>, smem)
-                         : allow_shared(auction_lap_kernel<false>, smem);
+  const Launch l = launch_of(batch, m, threads, false);
+  if (m > 32 && (threads % 32 != 0 || threads > kMaxThreads ||
+                 threads * (l.kernel == 3 ? 1 : 2) < m))
+    return (int)cudaErrorInvalidValue;
+  // segments of 8 lanes in the warp layout at every M, of 16 in a CTA:
+  // several persons bid in most rounds (3.3 a round at exact_n64, 13.4 at
+  // exact_n320), and narrower segments scan more of them at once
+  decltype(&auction_lap_kernel<true, 8, true>) const kernels[] = {
+      auction_lap_kernel<true, 8, true>, auction_lap_kernel<true, 8, true>,
+      auction_lap_kernel<true, 8, true>, auction_lap_kernel<false, 16, true>,
+      auction_lap_kernel<false, 16, false>};
+  const auto kernel = kernels[l.kernel];
+  const cudaError_t e = allow_shared(kernel, l.smem);
   if (e != cudaSuccess) return (int)e;
-  auto kernel = shared ? auction_lap_kernel<true> : auction_lap_kernel<false>;
-  kernel<<<batch, threads_for(m), smem, (cudaStream_t)stream>>>(
+  kernel<<<l.blocks, l.threads, l.smem, (cudaStream_t)stream>>>(
       (const float*)cost, (const float*)ladder, (float*)scratch, (int*)assign,
-      (float*)total, (bool*)conv, (int*)rounds, m, n_scales, max_rounds);
+      (float*)total, (bool*)conv, (int*)rounds, batch, m, n_scales,
+      max_rounds);
   return (int)cudaGetLastError();
 }
 
@@ -844,29 +897,25 @@ extern "C" int auction_lap_collapsed_launch(
     void* total, void* conv, void* rounds, void* price, int batch, int m,
     int n_scales, int max_rounds, int rev_every, void* stream) {
   if (batch <= 0 || m <= 0) return 0;
-  const CollapsedArgs p{(const float*)cbar, (const bool*)keep1,
-                        (const bool*)keep2, (const float*)price0,
-                        (const float*)ladder, (float*)scratch, (int*)p2o,
-                        (float*)total, (bool*)conv, (int*)rounds,
-                        (float*)price, batch, m, n_scales, max_rounds,
-                        rev_every};
-  cudaStream_t s = (cudaStream_t)stream;
-  if (m <= 32) {  // one warp per problem, kWarpProblems to a CTA
-    const int blocks = (batch + kWarpProblems - 1) / kWarpProblems;
-    const int threads = 32 * kWarpProblems;
-    const size_t smem = kWarpProblems * warp_region_bytes(m);
-    if (m <= 8) return launch_collapsed<true, 8, true>(p, blocks, threads,
-                                                       smem, s);
-    if (m <= 16) return launch_collapsed<true, 16, true>(p, blocks, threads,
-                                                         smem, s);
-    return launch_collapsed<true, 32, true>(p, blocks, threads, smem, s);
-  }
-  // one CTA per problem, a warp per segment
-  const int threads = threads_for(m) > kWideThreads ? threads_for(m)
-                                                    : kWideThreads;
-  if (fits_shared(m, true))
-    return launch_collapsed<false, 32, true>(
-        p, batch, threads, state_bytes(m, true) + cost_bytes(m), s);
-  return launch_collapsed<false, 32, false>(p, batch, threads,
-                                            state_bytes(m, true), s);
+  // a warp per 32 slots, at least kWideThreads, at most kMaxThreads
+  const int wide = (m + 31) / 32 * 32;
+  const int threads = wide < kWideThreads  ? kWideThreads
+                      : wide > kMaxThreads ? kMaxThreads
+                                           : wide;
+  const Launch l = launch_of(batch, m, threads, true);
+  decltype(&auction_collapsed_kernel<true, 8, true>) const kernels[] = {
+      auction_collapsed_kernel<true, 8, true>,
+      auction_collapsed_kernel<true, 16, true>,
+      auction_collapsed_kernel<true, 32, true>,
+      auction_collapsed_kernel<false, 32, true>,
+      auction_collapsed_kernel<false, 32, false>};
+  const auto kernel = kernels[l.kernel];
+  const cudaError_t e = allow_shared(kernel, l.smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<l.blocks, l.threads, l.smem, (cudaStream_t)stream>>>(
+      (const float*)cbar, (const bool*)keep1, (const bool*)keep2,
+      (const float*)price0, (const float*)ladder, (float*)scratch, (int*)p2o,
+      (float*)total, (bool*)conv, (int*)rounds, (float*)price, batch, m,
+      n_scales, max_rounds, rev_every);
+  return (int)cudaGetLastError();
 }

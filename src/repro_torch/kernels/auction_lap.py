@@ -466,7 +466,7 @@ def expand_collapsed_assignment(p2o):
 
 # ------------------------------------------------------------ CUDA launchers
 
-_LAP_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+_LAP_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                  + [ctypes.c_void_p])
 _COLLAPSED_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
@@ -481,9 +481,28 @@ def _scratch(b: int, m: int, collapsed: bool, device) -> torch.Tensor:
     return torch.empty((n,), dtype=torch.float32, device=device)
 
 
+def expanded_threads(batch: int, m: int, sm_count: int) -> int:
+    """Threads of the expanded kernel's CTA per problem (M > 32).
+
+    16 lanes scan one bidder's row, so the wider the CTA, the more bidders
+    scan at once, and the longer its barriers: on an H100, 512 (32 bidders
+    at once) ran ``exact_n320``'s rounds faster than 256 or 1024
+    (``PERF.md`` §6).  Halves while one wave of the batch would put more
+    than 1024 threads on an SM (the register file at 64 registers a
+    thread), but keeps a thread per slot (at most 1024: past shared memory
+    a thread owns two).
+    """
+    per_sm = -(-batch // sm_count)
+    t = 512
+    while t > 32 and t * per_sm > 1024:
+        t //= 2
+    return max(t, min(1024, 32 * -(-m // 32)))
+
+
 def auction_lap_cuda(cost: torch.Tensor, ladder: torch.Tensor,
                      max_rounds: int):
-    """Launch the expanded auction: one CTA per (M, M) problem.
+    """Launch the expanded auction: one warp per problem at M <= 32 (four
+    to a CTA), one CTA of :func:`expanded_threads` above.
 
     ``cost`` (B, M, M) float32 and ``ladder`` (n_scales,) float32, both
     contiguous on one CUDA device.  Returns ``(assign, total, converged,
@@ -498,11 +517,13 @@ def auction_lap_cuda(cost: torch.Tensor, ladder: torch.Tensor,
     if b == 0:
         return assign, total, conv, rounds
     scratch = _scratch(b, m, False, dev)
+    threads = expanded_threads(
+        b, m, torch.cuda.get_device_properties(dev).multi_processor_count)
     fn = _build.function("auction_lap", "auction_lap_launch", _LAP_ARGTYPES)
     err = fn(cost.data_ptr(), ladder.data_ptr(), scratch.data_ptr(),
              assign.data_ptr(), total.data_ptr(), conv.data_ptr(),
-             rounds.data_ptr(), b, m, ladder.numel(), max_rounds,
-             torch.cuda.current_stream(dev).cuda_stream)
+             rounds.data_ptr(), b, m, ladder.numel(), max_rounds, threads,
+             _build.stream_handle(dev))
     if err:
         raise RuntimeError(f"auction_lap launch failed: CUDA error {err}")
     return assign, total, conv, rounds
@@ -536,8 +557,7 @@ def auction_lap_collapsed_cuda(cbar: torch.Tensor, keep1: torch.Tensor,
              price0.data_ptr(), ladder.data_ptr(), scratch.data_ptr(),
              p2o.data_ptr(), total.data_ptr(), conv.data_ptr(),
              rounds.data_ptr(), price.data_ptr(), b, k, ladder.numel(),
-             max_rounds, rev_every,
-             torch.cuda.current_stream(dev).cuda_stream)
+             max_rounds, rev_every, _build.stream_handle(dev))
     if err:
         raise RuntimeError(f"auction_lap_collapsed launch failed: CUDA error "
                            f"{err}")

@@ -341,7 +341,8 @@ def auction_lap(cost: torch.Tensor, n_scales: int = 10,
     ``(assign (B, M) int32, total (B,) f32, converged (B,) bool, rounds (B,)
     int32)``; see :mod:`repro_torch.kernels.auction_lap` for the contract.
 
-    On CUDA one launch solves the whole batch, one CTA per problem.
+    On CUDA one launch solves the whole batch: a warp per problem at
+    M <= 32, a CTA per problem above.
     """
     b, m, rounds = _check_auction("auction_lap", cost, n_scales, max_rounds)
     if _route(cost.device, "auction_lap"):

@@ -184,6 +184,33 @@ AUCTION_CASES = (
     ("collapsed", 4, 16, {"signed_zero": True}, {}),
     ("collapsed", 3, 64, {"signed_zero": True}, {}),
     ("collapsed", 3, 64, {"mixed": True}, {"rev_every": 2}),
+    # the expanded kernel's layouts: a warp per problem, four to a CTA, at
+    # M <= 32 (batches off the multiples of 4; all-zero problems beside
+    # random ones, a round cap of 1), a CTA per problem above (512 threads
+    # at B <= 264 on 132 SMs, 256 at B = 300), around the shared-memory
+    # budget (229-231, the last shared M of 235 and the first global one,
+    # 236); ±0 ties
+    ("expanded", 5, 16, {}, {}),
+    ("expanded", 6, 16, {}, {}),
+    ("expanded", 7, 16, {}, {}),
+    ("expanded", 5, 32, {}, {}),
+    ("expanded", 6, 32, {}, {}),
+    ("expanded", 7, 32, {}, {}),
+    ("expanded", 6, 16, {"mixed": True}, {}),
+    ("expanded", 5, 32, {"mixed": True}, {}),
+    ("expanded", 6, 16, {}, {"max_rounds": 1}),
+    ("expanded", 3, 64, {}, {}),
+    ("expanded", 3, 65, {}, {}),
+    ("expanded", 300, 40, {}, {}),
+    ("expanded", 3, 64, {"mixed": True}, {}),
+    ("expanded", 1, 229, {}, {}),
+    ("expanded", 1, 230, {}, {}),
+    ("expanded", 1, 231, {}, {}),
+    ("expanded", 1, 235, {}, {}),
+    ("expanded", 1, 236, {}, {}),
+    ("expanded", 4, 8, {"signed_zero": True}, {}),
+    ("expanded", 4, 16, {"signed_zero": True}, {}),
+    ("expanded", 3, 64, {"signed_zero": True}, {}),
 )
 
 
@@ -200,7 +227,9 @@ def auction_operands(rng: np.random.Generator, b: int, m: int, kind: str,
     same with a nonnegative ``price0`` on random valid slots of the odd
     batch items.  ``zero`` zeroes the costs, ``invalid`` clears every mask,
     ``scale`` multiplies the costs, ``mixed`` clears the masks of the odd
-    batch items (problems that end at once beside full ones) and
+    batch items (problems that end at once beside full ones; expanded:
+    zeroes their costs, problems of ties everywhere that stop at other
+    rounds than their random neighbours) and
     ``signed_zero`` draws every cost from {-0, +0, ±1, 2} (ties, ±0 among
     them, in every row and column).
     """
@@ -208,6 +237,8 @@ def auction_operands(rng: np.random.Generator, b: int, m: int, kind: str,
         raise ValueError(f"unknown auction operand kind {kind!r}")
     if kind == "expanded":
         arrays = dict(cost=rng.uniform(0, 5, (b, m, m)))
+        if mixed:
+            arrays["cost"][1::2] = 0.0
     else:
         keep1 = rng.random((b, m)) < 0.7
         keep2 = rng.random((b, m)) < 0.7

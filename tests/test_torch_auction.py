@@ -195,8 +195,9 @@ def test_wrappers_check_their_operands():
 # ------------------------------------------- the collapsed kernel's scans
 
 def _serial_top2(v):
-    """``csrc/auction_lap.cu``'s serial ``top2`` over float32 values: the
-    first argmax, the maximum and the maximum over the other indices."""
+    """One thread's serial scan over float32 values, which the kernels'
+    segment merges must reproduce: the first argmax, the maximum and the
+    maximum over the other indices (the first of equal values kept)."""
     js, v1, v2 = 0, np.float32(-np.inf), np.float32(-np.inf)
     for j, x in enumerate(v):
         if x > v1:
@@ -305,6 +306,156 @@ def test_segment_tree_top2_equals_the_serial_scan(k, s):
         assert tjs == js
         assert np.float32(tv1).tobytes() == v1.tobytes()
         assert np.float32(tv2).tobytes() == np.float32(v2).tobytes()
+
+
+# ------------------------------- the expanded kernel's owner-updated round
+
+def _popc(x):
+    return bin(x).count("1")
+
+
+def _ballot_lists(free):
+    """The kernel's free masks (a ballot per 32-slot word) and slot list
+    (each free slot at 32 * word + its rank among the word's set bits)."""
+    words = -(-len(free) // 32)
+    masks, lst = [], [-1] * (32 * words)
+    for w in range(words):
+        lanes = [n for n in range(32) if 32 * w + n < len(free)
+                 and free[32 * w + n]]
+        fm = sum(1 << n for n in lanes)
+        for n in lanes:
+            lst[32 * w + _popc(fm & ((1 << n) - 1))] = 32 * w + n
+        masks.append(fm)
+    return masks, lst
+
+
+def _nth_slot(lst, masks, e):
+    """The kernel's ``nth_slot``: the e-th free slot, walking the words."""
+    c0 = _popc(masks[0])
+    if e < c0:
+        return lst[e]
+    e, w = e - c0, 1
+    while e >= _popc(masks[w]):
+        e, w = e - _popc(masks[w]), w + 1
+    return lst[32 * w + e]
+
+
+def _order_bits(x):
+    """The kernel's ``order_bits`` of a float32 (±0 alike)."""
+    u = int(np.float32(0.0 if x == 0 else x).view(np.uint32))
+    return u ^ (0xFFFFFFFF if u >> 31 else 0x80000000)
+
+
+def _owner_round(a, price, p2o, eps):
+    """One round of ``csrc/auction_lap.cu``'s expanded kernel on one (M, M)
+    problem: the free persons from the ballot lists, each scanned by an
+    S-lane segment (8 lanes at M <= 32, 16 above, as the launcher picks
+    them) into a bid, a target and the target's 64-bit key; then every
+    slot settled by its owner from the keys and bids alone.  Returns
+    ``(price, p2o, stalled)``."""
+    m = len(p2o)
+    s = 8 if m <= 32 else 16
+    masks, lst = _ballot_lists(p2o < 0)
+    bidders = [_nth_slot(lst, masks, e)
+               for e in range(sum(map(_popc, masks)))]
+    assert bidders == np.flatnonzero(p2o < 0).tolist()
+    key, bidv, tgt = [0] * m, {}, {}
+    for u in bidders:
+        v = torch.from_numpy(a[u] - price)
+        js, v1, v2 = _tree_top2(v, s)
+        v2 = np.float32(v2 if np.isfinite(float(v2)) else v1)  # M == 1
+        bidv[u] = np.float32(np.float32(a[u, js] - v2) + eps)
+        tgt[u] = js
+        key[js] = max(key[js], _order_bits(bidv[u]) << 32 | (m - 1 - u))
+    price2, p2o2, moved = price.copy(), p2o.copy(), False
+    for t in range(m):
+        if p2o[t] < 0:  # a bidder: won its target, or stays free
+            if key[tgt[t]] & 0xFFFFFFFF == m - 1 - t:
+                p2o2[t] = tgt[t]
+        elif key[p2o[t]]:
+            p2o2[t] = -1  # evicted
+        if key[t]:  # the object goes to its highest bidder
+            price2[t] = bidv[m - 1 - (key[t] & 0xFFFFFFFF)]
+            moved |= not price2[t] == price[t]
+    return price2, p2o2, not moved
+
+
+def _round_start(kind, m, rng):
+    """A seeded (a, price, p2o, eps) state of one problem: benefits
+    ``-(cost / max |cost|)`` of uniform costs ("random"), of costs from a
+    few values with repeated rows ("ties"), from {-0, +0, ±1, 2}
+    ("signed_zero") or all zero ("zero"); a hand-made eviction chain
+    ("chain": each evicted person takes the next person's object); zero
+    costs at equal prices of 1 and eps = 1e-12, below their resolution, so
+    every bid leaves its price as it was ("stall", first); negative prices
+    under which bids come out exactly +0 ("zero_bid").  Each kind starts
+    fresh, then from a random partial matching at random prices."""
+    eps = np.float32(0.002)
+    if kind == "chain":
+        a = np.array([[-1, 0, -1, -1], [-1, 0, -0.5, -1], [-1, -1, 0, -0.5],
+                      [-0.5, -1, -1, 0]], np.float32)
+        yield a, np.zeros(4, np.float32), np.array([-1, 1, 2, 3]), eps
+        return
+    if kind == "zero_bid":  # v2 = x1 + eps: the bid is x1 - v2 + eps = +0
+        a = np.zeros((m, m), np.float32)
+        price = np.full(m, -0.25, np.float32)
+        price[0] = -0.5
+        yield a, price, np.full(m, -1), np.float32(0.25)
+        return
+    cost = {"random": lambda: rng.uniform(0, 5, (m, m)),
+            "stall": lambda: np.zeros((m, m)),
+            "ties": lambda: rng.choice([0.0, 1.0, 2.0], (m, m))[
+                rng.integers(0, max(1, m // 3), m)],
+            "signed_zero": lambda: rng.choice([-0.0, 0.0, 1.0, -1.0, 2.0],
+                                              (m, m)),
+            "zero": lambda: np.zeros((m, m))}[kind]()
+    a = auction_lap._normalized(torch.from_numpy(
+        np.asarray(cost, np.float32))[None])[0].numpy()
+    p2o = np.where(rng.random(m) < 0.6, rng.permutation(m), -1)
+    if kind == "stall":  # every bid is an equal price plus eps: unchanged
+        eps = np.float32(1e-12)
+        yield a, np.ones(m, np.float32), p2o, eps
+    yield a, np.zeros(m, np.float32), np.full(m, -1), eps
+    price = rng.uniform(0, 0.5, m)
+    price[rng.random(m) < 0.2] = -0.0 if kind == "signed_zero" else 0.0
+    yield a, price.astype(np.float32), p2o, eps
+
+
+@pytest.mark.parametrize("kind,m", [
+    ("random", 1), ("random", 2), ("random", 31), ("random", 33),
+    ("random", 64), ("random", 128), ("ties", 16), ("ties", 33),
+    ("signed_zero", 9), ("signed_zero", 33), ("zero", 16), ("zero", 33),
+    ("chain", 4), ("stall", 8), ("stall", 40), ("zero_bid", 5)])
+def test_owner_updated_round_equals_bid_round(kind, m):
+    # the expanded kernel's round, emulated, against the plain solver's
+    # bid_round, round after round from each start state: prices bitwise,
+    # p2o, and the stall flag (an unchanged price vector)
+    rng = np.random.default_rng(1000 + 7 * m + len(kind))
+    rounds = 40 if m <= 33 else 6 if m <= 64 else 3
+    for a, price, p2o, eps in _round_start(kind, m, rng):
+        a_t = torch.from_numpy(a)[None]
+        for _ in range(rounds):
+            p2o_t = torch.from_numpy(p2o.astype(np.int32))[None]
+            want = auction_lap.bid_round(
+                a_t, torch.from_numpy(price)[None], p2o_t,
+                auction_lap._owners(p2o_t), torch.tensor(eps))
+            got = _owner_round(a, price, p2o, eps)
+            w_price, w_p2o = want[0][0].numpy(), want[1][0].numpy()
+            assert got[0].tobytes() == w_price.tobytes()
+            assert np.array_equal(got[1], w_p2o)
+            assert got[2] == bool((w_price == price).all())
+            price, p2o = w_price, w_p2o.astype(np.int64)
+            if (p2o >= 0).all():
+                break
+
+
+@pytest.mark.parametrize("b,m,threads", [
+    (128, 128, 512), (264, 128, 512), (396, 128, 256), (2048, 64, 64),
+    (2048, 40, 64), (2, 256, 512), (1, 2048, 1024), (4096, 33, 64),
+    (132, 500, 512), (132, 600, 608)])
+def test_expanded_threads(b, m, threads):
+    # one wave of CTAs, at most 1024 threads an SM of 132, a thread a slot
+    assert auction_lap.expanded_threads(b, m, 132) == threads
 
 
 # ------------------------------------------------------------ cost surfaces

@@ -24,6 +24,18 @@ from repro_torch.convert import graph_batch_from_numpy, graph_batch_to_numpy
 from repro_torch.core import filtration, graph, persistence, reduction, repack
 from tests.conftest import graphs_to_batch, random_graphs
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: these tests run many small torch ops, which
+    gain nothing from threads, and parallel test workers would
+    oversubscribe the CPUs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # the packages' __init__ re-export functions named like these modules
 kcore = importlib.import_module("repro_torch.core.kcore")
 prunit = importlib.import_module("repro_torch.core.prunit")

@@ -27,6 +27,18 @@ from repro_torch.convert import diagrams_from_numpy
 from repro_torch.metrics import distances
 from repro_torch.topo import features
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: these tests run many small torch ops, which
+    gain nothing from threads, and parallel test workers would
+    oversubscribe the CPUs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RTOL, ATOL = 1e-5, 1e-6
 
 

@@ -44,6 +44,18 @@ from repro_torch.core.persistence import Diagrams
 from repro_torch.data import graphs
 from repro_torch.index import TopoIndex, TopoIndexConfig, clouds_to_diagrams
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: these tests run many small torch ops, which
+    gain nothing from threads, and parallel test workers would
+    oversubscribe the CPUs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIELDS = ("birth", "death", "dim", "valid")
 

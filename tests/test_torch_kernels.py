@@ -30,6 +30,17 @@ from repro_torch.kernels import ops, ref
 from tests.conftest import graphs_to_batch, random_graphs
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: these tests run many small torch ops, which
+    gain nothing from threads, and parallel test workers would
+    oversubscribe the CPUs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cpu(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x))
 

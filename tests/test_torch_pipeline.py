@@ -22,6 +22,18 @@ from repro_torch.convert import diagrams_arrays, graph_batch_from_numpy
 from repro_torch.core import api
 from tests.conftest import graphs_to_batch, random_graphs
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: these tests run many small torch ops, which
+    gain nothing from threads, and parallel test workers would
+    oversubscribe the CPUs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
