@@ -41,16 +41,17 @@ port's five paths:
 CUDA results are compared with the same functions run on the CPU: bitwise
 where the computation is exact, within a stated tolerance where float sums
 run in another order.  The kernel checks also run ``kcore_peel`` at every
-cluster size its selector returns on this card and hold both
+cluster size its selector returns on this card, ``domination`` on each
+side of the N = 128 that divides its two work mappings, and hold both
 ``pairwise_l1`` layouts against each other bitwise.  Then one n64
 execution, one n64 clustering call, one index run (and the sharded LSH
 query alone), one full-tensor Sinkhorn call and DD-rung exact_w calls in
 both layouts are profiled for device time by kernel, and each kernel is
 timed at the largest input each phase gave it (``kcore_peel``,
-``pairwise_l1`` and the auction kernels also on the device, behind a sleep
-that keeps the host out of the time, with the cluster size or layout the
-launch took; the auction kernels also per round of their slowest
-problem).  Each phase prints one JSON line; any failure exits
+``domination``, ``pairwise_l1`` and the auction kernels also on the
+device, behind a sleep that keeps the host out of the time, with the
+cluster size, mapping or layout the launch took; the auction kernels also
+per round of their slowest problem).  Each phase prints one JSON line; any failure exits
 non-zero.  The last two lines are the ``kernels`` summary (launches on the
 main path, error against the plain version, times and bounds) after the
 card's name and power limit, and the ``ok`` line.
@@ -74,6 +75,8 @@ LANE_OPS_PER_S = 33.5e12
 # the multi-function units (ex2, lg2, rcp): 16 per SM per clock on Hopper;
 # popcounts run at the same rate
 MUFU_OPS_PER_S = 16 * 132 * 1.98e9
+# int8 tensor-core operations a second, dense (an FMA counts as two)
+INT8_TC_OPS_PER_S = 1979e12
 
 REPLACES = {
     "kcore_peel": "src/repro/kernels/kcore_peel.py:42",
@@ -367,6 +370,47 @@ def _kcore_cluster_cases(dev):
                (1, 96, 6.0), (2, 4096, 4.0), (67, 1500, 4.0)])
 
 
+def _check_domination(record, adj, mask, shape):
+    """The domination kernel bitwise the plain version, with the work
+    mapping its selector took; two launches equal.  Returns the output."""
+    import torch
+    from repro_torch.kernels import domination as dm
+    from repro_torch.kernels import ref
+
+    got = dm.domination_cuda(adj, mask)
+    check(torch.equal(got, dm.domination_cuda(adj, mask)),
+          f"domination {shape}: two launches differ")
+    sms = torch.cuda.get_device_properties(adj.device).multi_processor_count
+    record("domination", shape + [dm.layout(*mask.shape, sms).mapping],
+           max_abs_err([got], [ref.domination_ref(adj, mask)]))
+    return got
+
+
+def _domination_edge_graphs(n, dev):
+    """Five graphs of n vertices: complete; twins 0 and 1 (each dominates
+    the other); the twins with vertices 2 and 3 isolated; complete with
+    every vertex dead; the twins with the upper half dead (edges kept)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(n)
+    full = ~np.eye(n, dtype=bool)
+    twins = np.triu(rng.random((n, n)) < 0.3, 1)
+    twins = twins | twins.T
+    twins[1], twins[:, 1] = twins[0], twins[:, 0]
+    twins[0, 1] = twins[1, 0] = True
+    twins[0, 0] = twins[1, 1] = False
+    lonely = twins.copy()
+    lonely[2:4] = False
+    lonely[:, 2:4] = False
+    mask = np.ones((5, n), bool)
+    mask[3] = False
+    mask[4, n // 2:] = False
+    return (torch.from_numpy(np.stack([full, twins, lonely, full,
+                                       twins])).to(dev),
+            torch.from_numpy(mask).to(dev))
+
+
 def _l1_layout(m, n) -> str:
     from repro_torch.kernels.pairwise_gram import small_grid
 
@@ -411,9 +455,7 @@ def phase_kernel_checks(dev) -> dict:
                     break
             got = kcore_peel_cuda(adj, mask, k, sweeps)
             record("kcore_peel", [b, n, k, sweeps], max_abs_err([got], [want]))
-        if n <= 1000:
-            record("domination", [b, n], max_abs_err(
-                [domination_cuda(adj, mask)], [ref.domination_ref(adj, mask)]))
+        _check_domination(record, adj, mask, [b, n])
     for b, n, deg in _kcore_cluster_cases(dev):
         adj, mask = _random_graphs(b, n, deg / n, seed=b + n, device=dev)
         c = cluster_size(b, n, sms)
@@ -440,6 +482,18 @@ def phase_kernel_checks(dev) -> dict:
     empty = torch.zeros((0, 8, 8), dtype=torch.bool, device=dev)
     check(kcore_peel_cuda(empty, empty[:, 0], 1, 0).shape == (0, 8),
           "kcore_peel on an empty batch")
+    check(domination_cuda(empty, empty[:, 0]).shape == (0, 8, 8),
+          "domination on an empty batch")
+    # domination: complete graphs, twins, isolated vertices, an all-dead
+    # mask and half-dead graphs, at sizes of both mappings
+    for n in (7, 64, 96, 128, 129, 320, 1024):
+        adj, mask = _domination_edge_graphs(n, dev)
+        got = _check_domination(record, adj, mask, [5, n, "edge cases"])
+        check(torch.equal(got[0], ~torch.eye(n, dtype=torch.bool,
+                                             device=dev))
+              and bool(got[1, 0, 1]) and bool(got[1, 1, 0])
+              and not bool(got[3].any()),
+              f"domination {n}: complete graph, twins or dead mask wrong")
 
     blocks = _bit31_blocks(4, 96, 128, seed=5, device=dev)
     want = ref.gf2_reduce_ref(blocks, 128)
@@ -1794,8 +1848,8 @@ def _profile(name, fn, reps: int = 1) -> dict:
             rows.append((dev_us / 1e3, e.key, e.count))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    ported = ("kcore_peel_kernel", "pack_closed_nbhd_kernel",
-              "domination_tile_kernel", "gf2_reduce_kernel",
+    ported = ("kcore_peel_kernel", "domination_gram_kernel",
+              "gf2_reduce_kernel",
               "pack_rows_kernel", "common_neighbors_tile_kernel",
               "pairwise_l1_kernel", "pairwise_l1_small_kernel",
               "sinkhorn_lse_kernel",
@@ -1911,12 +1965,29 @@ def _time_kcore(adj, alive, k, sweeps) -> dict:
             "library_ms": cuda_ms(library), "bound_ms": bt, "bound_by": by}
 
 
+def _domination_bounds(b, n) -> dict:
+    """The least time any implementation could take, the larger of one
+    read of adj and mask and one write of out at HBM_BYTES_PER_S and the
+    int8 operations of the Gram at INT8_TC_OPS_PER_S: G is symmetric, so
+    a graph needs its N(N+1)/2 distinct inner products of N products
+    each, B*N^2*(N+1) operations with an FMA as two.  Beside it, the
+    popcount floor of a packed AND-NOT form, B*N^2*ceil(N/32) popcounts
+    at MUFU_OPS_PER_S."""
+    t_bytes = (2 * b * n * n + b * n) / HBM_BYTES_PER_S * 1e3
+    t_ops = float(b) * n * n * (n + 1) / INT8_TC_OPS_PER_S * 1e3
+    bt, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return {"bound_ms": bt, "bound_by": by,
+            "popcount_floor_ms": b * n * n * ((n + 31) // 32)
+            / MUFU_OPS_PER_S * 1e3}
+
+
 def _time_domination(adj, mask) -> dict:
-    """Kernel, plain version, and one f32 torch.bmm of the 0/1 matrices
-    with the same epilogue."""
+    """Kernel (between events, on the device, and the wrapper's host time
+    a call), plain version, and one f32 torch.bmm of the 0/1 matrices with
+    the same epilogue; the work mapping the launch took."""
     import torch
+    from repro_torch.kernels import domination as dm
     from repro_torch.kernels import ref
-    from repro_torch.kernels.domination import domination_cuda
 
     b, n = mask.shape
     eye = torch.eye(n, dtype=torch.bool, device=adj.device)
@@ -1928,14 +1999,20 @@ def _time_domination(adj, mask) -> dict:
                          .transpose(1, 2))
         return (viol == 0) & ~eye & live
 
-    bt, by = bound(2 * adj.numel() + mask.numel(),
-                   3.0 * b * n * n * ((n + 31) // 32))
+    def kernel():
+        return dm.domination_cuda(adj, mask)
+
+    sms = torch.cuda.get_device_properties(adj.device).multi_processor_count
+    lay = dm.layout(b, n, sms)
     return {"name": "domination", "shape": [b, n, n],
-            "max_abs_err": max_abs_err([domination_cuda(adj, mask)],
+            "mapping": lay.mapping, "graphs_per_cta": lay.graphs_per_cta,
+            "ctas": lay.ctas,
+            "max_abs_err": max_abs_err([kernel()],
                                        [ref.domination_ref(adj, mask)]),
-            "ms": cuda_ms(lambda: domination_cuda(adj, mask)),
+            "ms": cuda_ms(kernel), "device_ms": device_ms(kernel),
+            "host_ms": host_ms_per_call(kernel),
             "plain_ms": cuda_ms(lambda: ref.domination_ref(adj, mask)),
-            "library_ms": cuda_ms(library), "bound_ms": bt, "bound_by": by}
+            "library_ms": cuda_ms(library), **_domination_bounds(b, n)}
 
 
 def _time_gf2(blocks, n_rows) -> dict:

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import domination as dm
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.common_neighbors import common_neighbors_cuda
 from repro_torch.kernels.domination import domination_cuda
@@ -144,11 +145,69 @@ def test_kcore_peel_rows_past_shared_memory(cuda, b, n):
     _check_kcore(*_sparse_graphs(b, n, 4.0, seed=n, device=cuda))
 
 
-@pytest.mark.parametrize("n,p", [(1, 0.5), (33, 0.3), (64, 0.1), (257, 0.02),
-                                 (1024, 0.005)])
+def _check_domination(adj, mask):
+    """The launch bitwise the plain version; two launches bitwise equal."""
+    got = domination_cuda(adj, mask)
+    assert torch.equal(got, ref.domination_ref(adj, mask))
+    assert torch.equal(domination_cuda(adj, mask), got)
+
+
+@pytest.mark.parametrize("n,p", [(1, 0.5), (33, 0.3), (64, 0.1), (65, 0.1),
+                                 (128, 0.05), (129, 0.05), (257, 0.02),
+                                 (320, 0.02), (417, 0.02), (1024, 0.005),
+                                 (2048, 0.003)])
 def test_domination_kernel(cuda, n, p):
     adj, mask = _graphs(3, n, p, seed=n, device=cuda)
-    assert torch.equal(domination_cuda(adj, mask), ref.domination_ref(adj, mask))
+    _check_domination(adj, mask)
+
+
+@pytest.mark.parametrize("n", [7, 64, 96, 128, 129, 320])
+def test_domination_kernel_edge_cases(cuda, n):
+    # complete graphs, twins (mutual), isolated vertices, an all-dead
+    # mask, half the vertices dead with their edges kept; B = 5 is not a
+    # multiple of the graphs a CTA holds
+    rng = np.random.default_rng(n)
+    full = ~np.eye(n, dtype=bool)
+    twins = np.triu(rng.random((n, n)) < 0.3, 1)
+    twins = twins | twins.T
+    twins[1], twins[:, 1] = twins[0], twins[:, 0]
+    twins[0, 1] = twins[1, 0] = True
+    twins[0, 0] = twins[1, 1] = False
+    lonely = twins.copy()
+    lonely[2:4] = False
+    lonely[:, 2:4] = False
+    adj = np.stack([full, twins, lonely, full, twins])
+    mask = np.ones((5, n), bool)
+    mask[3] = False
+    mask[4, n // 2:] = False
+    adj, mask = torch.from_numpy(adj).to(cuda), torch.from_numpy(mask).to(cuda)
+    _check_domination(adj, mask)
+    got = domination_cuda(adj, mask)
+    assert torch.equal(got[0], ~torch.eye(n, dtype=torch.bool, device=cuda))
+    assert bool(got[1, 0, 1]) and bool(got[1, 1, 0])
+    assert not bool(got[3].any())
+
+
+@pytest.mark.parametrize("b,n,deg", [(4096, 64, 3.0), (256, 320, 5.0),
+                                     (16, 1024, 11.7)])
+def test_domination_kernel_main_path_shapes(cuda, b, n, deg):
+    # the n64 and n320 rungs and Table 1, at their mean degrees
+    _check_domination(*_sparse_graphs(b, n, deg, seed=b + n, device=cuda))
+
+
+def test_domination_smem_matches_layout(cuda):
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    fn = _build.function("domination", "domination_smem_bytes",
+                         [ctypes.c_int] * 2, ctypes.c_longlong)
+    for n in (1, 33, 64, 96, 128, 129, 320, 1024, 2048):
+        for sms in (1, 132):
+            lay = dm.layout(64, n, sms)
+            assert fn(n, lay.graphs_per_cta) == lay.smem_bytes
+    assert fn(64, 8) == -1  # more graphs than a CTA's warps take
+    assert fn(320, 2) == -1  # the tile mapping takes one graph a CTA
 
 
 def _blocks(g, s, r, seed, device):

@@ -1,4 +1,5 @@
-"""The kcore_peel and pairwise_l1 kernels' layouts, emulated on the CPU.
+"""The kcore_peel, pairwise_l1 and domination kernels' layouts, emulated
+on the CPU.
 
 The CUDA kernels run only on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``).  What their layouts must preserve is checked here, in
@@ -19,14 +20,31 @@ torch, with zero tolerance:
   order) added to 0 in chunk order, in both its 64 x 64 layout and its
   small-grid layout (16 x 16 tiles, 8 chunks a round).  The two emulations
   agree bitwise, and with ``repro``'s reference within the L1 tolerance.
+* ``domination`` stages raw adjacency bytes and sums in int32 on the
+  tensor cores, over its K chunks, the Gram of the A side (the diagonal
+  byte set, then every column masked, in the fragments) against the B side
+  (the diagonal set, unmasked); d = the A side's row sums (an mma against
+  ones).  It compares each sum with d of its row (or, in the mirrored
+  block of an off-diagonal tile pair, of its column) under both live bits.
+  The emulation follows the tile pairs and K chunks of the mapping
+  ``layout`` picks and is held bitwise against the port's plain version,
+  and that against ``repro``'s interpret-mode Pallas kernel (N <= 128) or
+  its reference, on random graphs of ragged N, a Table 1 surrogate,
+  complete graphs, twins, isolated vertices and an all-dead mask.  The
+  CTAs and warp tiles of each mapping write every entry once, and the
+  launch stays within shared memory.
 """
+import functools
+
 import jax
 import numpy as np
 import pytest
 import torch
 
 from repro.data.graphs import load_large_network
+from repro.kernels import ops as ops_j
 from repro.kernels import ref as ref_j
+from repro_torch.kernels import domination as dm
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.kcore_peel import MAX_CLUSTER, cluster_size
 
@@ -163,11 +181,17 @@ def _check_cluster_peel(adj, alive, k):
         assert torch.equal(_cluster_peel(a, m, k, 1, c)[0], one)
 
 
+@functools.lru_cache(maxsize=None)
+def _surrogate(name):
+    """A Table 1 surrogate of 1024 vertices: (1, N, N) adj, (1, N) mask."""
+    g = load_large_network(name, jax.random.PRNGKey(3), n_pad=1024)
+    return np.array(g.adj), np.array(g.mask)
+
+
 @pytest.mark.parametrize("name", ["com-youtube", "web-Stanford",
                                   "p2pGnutella31"])
 def test_cluster_sweep_on_table1_surrogates(name):
-    g = load_large_network(name, jax.random.PRNGKey(3), n_pad=1024)
-    adj, alive = np.array(g.adj[0]), np.array(g.mask[0])
+    adj, alive = (x[0] for x in _surrogate(name))
     for k in (2, 3):
         _check_cluster_peel(adj, alive, k)
 
@@ -301,3 +325,283 @@ def test_l1_chunk_order_is_the_same_in_both_layouts(m, n, d):
                                                              y.numpy())))
     assert bool(((big - want).abs() <= tol).all())
     assert bool(((big - ops.pairwise_l1(x, y)).abs() <= tol).all())
+
+
+# ------------------------------------------------------------- domination
+
+def _pair_of(p, tiles):
+    """``csrc/domination.cu`` ``pair_of``: unordered tile pair p, iu <= iv."""
+    iu, row = 0, tiles
+    while p >= row:
+        p, iu, row = p - row, iu + 1, row - 1
+    return iu, iu + p
+
+
+def _operands(adj, mask, np_):
+    """The kernel's operands of each graph, zero past N: the (B, np, np)
+    int8 A side, raw adjacency bytes with the diagonal byte set and then
+    every column masked (the fragments after the diagonal byte and ``&
+    m``), the B side, raw bytes with the diagonal set and no mask, and the
+    (B, np) mask."""
+    b, n = mask.shape
+    raw = torch.zeros((b, np_, np_), dtype=torch.int8)
+    raw[:, :n, :n] = adj.to(torch.int8)
+    m = torch.zeros((b, np_), dtype=torch.int8)
+    m[:, :n] = mask.to(torch.int8)
+    side_b = raw | torch.eye(np_, dtype=torch.int8)
+    return side_b & m[:, None, :], side_b, m
+
+
+def _emulate_domination(adj, mask, lay):
+    """One launch of the kernel at layout ``lay``, tile pair by tile pair:
+    the int32 Gram of the masked A side against the raw B side over the
+    kernel's K chunks (the whole padded K at once in the graph mapping,
+    128 bytes a chunk in the tile mapping), d = the A side's row sums (the
+    kernel's mma against ones) for the rows and, in the mirrored block of
+    an off-diagonal pair, for the columns, and the comparison under both
+    live bits.  The warp tiles split a pair without changing a sum."""
+    b, n = mask.shape
+    np_ = dm.padded(n)
+    side_a, side_b, m = _operands(adj, mask, np_)
+    live = m == 1
+    k_chunk = np_ if lay.mapping == "graph" else dm.CHUNK
+    tiles = -(-np_ // lay.tile)
+    ones = torch.ones((b, 1, np_), dtype=torch.int8)
+    vertex = torch.arange(np_)
+
+    def gram(x, y):
+        """int32 x @ y^T a graph, each K chunk's partial exact in float64
+        (0/1 products, sums <= 1024), the partials added in int32."""
+        acc = torch.zeros((b, x.shape[1], y.shape[1]), dtype=torch.int32)
+        for k0 in range(0, np_, k_chunk):
+            acc += torch.bmm(x[..., k0:k0 + k_chunk].double(),
+                             y[..., k0:k0 + k_chunk].double().transpose(1, 2)
+                             ).to(torch.int32)
+        return acc
+
+    out = torch.zeros((b, np_, np_), dtype=torch.bool)
+    for p in range(tiles * (tiles + 1) // 2):
+        iu, iv = _pair_of(p, tiles)
+        us = slice(iu * lay.tile, min(np_, (iu + 1) * lay.tile))
+        vs = slice(iv * lay.tile, min(np_, (iv + 1) * lay.tile))
+        acc = gram(side_a[:, us], side_b[:, vs])
+        both = (live[:, us, None] & live[:, None, vs]
+                & (vertex[us, None] != vertex[None, vs]))
+        out[:, us, vs] = both & (acc == gram(side_a[:, us], ones))
+        if iu != iv:  # the mirrored block, against d of the v rows
+            dv = gram(side_a[:, vs], ones)[..., 0]
+            out[:, vs, us] = (both & (acc == dv[:, None, :])).transpose(1, 2)
+    return out[:, :n, :n]
+
+
+def _domination_writes(lay, b, n):
+    """How often one launch at ``lay`` writes each (graph, u, v), CTA by
+    CTA and warp tile by warp tile: the graph mapping's persistent CTAs
+    take groups cta, cta + ctas, ... of ``graphs_per_cta`` graphs, a warp
+    one 32 x 64 tile of one graph; the tile mapping's CTA one unordered
+    tile pair, a warp one 32 x 64 tile of it, written twice (u, v) and
+    (v, u) off the diagonal pairs."""
+    np_ = dm.padded(n)
+    writes = torch.zeros((b, n, n), dtype=torch.int32)
+
+    def warp_tile(g, ra, rv, tv, mirror):
+        us = torch.arange(ra, min(ra + 32, n))
+        vs = torch.arange(rv, min(rv + (64 if rv + 32 < tv else 32), n))
+        writes[g, us[:, None], vs[None, :]] += 1
+        if mirror:
+            writes[g, vs[:, None], us[None, :]] += 1
+
+    if lay.mapping == "graph":
+        gpc = lay.graphs_per_cta
+        rbs, cbs = np_ // 32, -(-np_ // 64)
+        assert gpc * rbs * cbs <= dm.WARPS  # one warp tile a warp
+        for cta in range(lay.ctas):
+            for grp in range(cta, -(-b // gpc), lay.ctas):
+                for w in range(gpc * rbs * cbs):
+                    s, r = divmod(w, rbs * cbs)
+                    rb, cb = divmod(r, cbs)
+                    if grp * gpc + s < b:
+                        warp_tile(grp * gpc + s, rb * 32, cb * 64, np_, False)
+        return writes
+    tiles = -(-np_ // lay.tile)
+    pairs = tiles * (tiles + 1) // 2
+    assert lay.ctas == b * pairs
+    for cta in range(lay.ctas):
+        g, p = divmod(cta, pairs)
+        iu, iv = _pair_of(p, tiles)
+        tu = min(lay.tile, np_ - iu * lay.tile)
+        tv = min(lay.tile, np_ - iv * lay.tile)
+        rbs, cbs = tu // 32, -(-tv // 64)
+        assert rbs * cbs <= dm.WARPS
+        for w in range(rbs * cbs):
+            rb, cb = divmod(w, cbs)
+            warp_tile(g, iu * lay.tile + rb * 32, iv * lay.tile + cb * 64,
+                      iv * lay.tile + tv, iu != iv)
+    return writes
+
+
+def _dom_graphs(b, n, p, seed, live=0.85):
+    """Seeded symmetric graphs with dead vertices (edges at dead vertices
+    kept: the kernel and the references mask them)."""
+    rng = np.random.default_rng(seed)
+    adj = np.triu(rng.random((b, n, n)) < p, 1)
+    adj = adj | adj.transpose(0, 2, 1)
+    mask = rng.random((b, n)) < live
+    return adj, mask
+
+
+def _dom_edge_graphs(n):
+    """Five graphs of n vertices: complete (every live pair dominates both
+    ways); twins 0 and 1 (a vertex and its copy, mutual); the twins with
+    vertices 2 and 3 isolated (dominated by none, dominating none);
+    complete with an all-dead mask (nothing); the twins with their upper
+    half dead (edges to dead vertices kept)."""
+    rng = np.random.default_rng(n)
+    full = ~np.eye(n, dtype=bool)
+    twins = np.triu(rng.random((n, n)) < 0.3, 1)
+    twins = twins | twins.T
+    twins[1] = twins[0]
+    twins[:, 1] = twins[:, 0]
+    twins[0, 1] = twins[1, 0] = True
+    twins[0, 0] = twins[1, 1] = False
+    lonely = twins.copy()
+    lonely[2:4] = False
+    lonely[:, 2:4] = False
+    mask = np.ones((5, n), bool)
+    mask[3] = False
+    mask[4, n // 2:] = False
+    return np.stack([full, twins, lonely, full, twins]), mask
+
+
+_RANDOM_N = [1, 33, 64, 65, 128, 129, 320]
+_EDGE_N = [7, 64, 96, 129]
+_TABLE1 = "com-youtube"
+
+
+@functools.lru_cache(maxsize=None)
+def _dom_cases():
+    """Every case by name: (adj, mask) numpy.  B = 5 is not a multiple of
+    the graphs a CTA holds at N <= 64."""
+    cases = {f"random{n}": _dom_graphs(5, n, min(0.5, 6.0 / n), seed=n)
+             for n in _RANDOM_N}
+    cases.update({f"edge{n}": _dom_edge_graphs(n) for n in _EDGE_N})
+    cases[_TABLE1] = _surrogate(_TABLE1)
+    return cases
+
+
+@functools.lru_cache(maxsize=None)
+def _repro_domination():
+    """repro's answer on every case, by name.  The cases of N <= 128 go
+    through one interpret-mode Pallas call at 128 vertices, the larger
+    ones through one call of repro's reference at 1024: each graph padded
+    with dead isolated vertices, which change no entry among its first N
+    (every sum runs over live columns only), and the first N x N read
+    back."""
+    cases = _dom_cases()
+    out = {}
+    for small, pad in ((True, 128), (False, 1024)):
+        names = [k for k, (_, m) in cases.items()
+                 if (m.shape[1] <= 128) == small]
+        total = sum(cases[k][1].shape[0] for k in names)
+        adj = np.zeros((total, pad, pad), bool)
+        mask = np.zeros((total, pad), bool)
+        at = []
+        for k in names:
+            a, m = cases[k]
+            b, n = m.shape
+            i = sum(x[2] for x in at)
+            adj[i:i + b, :n, :n], mask[i:i + b, :n] = a, m
+            at.append((k, n, b))
+        if small:
+            got = np.asarray(ops_j.domination(
+                jax.numpy.asarray(adj), jax.numpy.asarray(mask), tile=pad))
+        else:
+            got = np.asarray(jax.vmap(ref_j.domination_ref)(adj, mask))
+        i = 0
+        for k, n, b in at:
+            out[k] = got[i:i + b, :n, :n]
+            i += b
+    return out
+
+
+def _check_domination(name):
+    """The emulated launch at the layout the selector picks, bitwise the
+    port's plain version, which is bitwise repro's answer."""
+    adj, mask = _dom_cases()[name]
+    a, m = torch.from_numpy(adj), torch.from_numpy(mask)
+    b, n = mask.shape
+    want = ref.domination_ref(a, m)
+    np.testing.assert_array_equal(want.numpy(), _repro_domination()[name])
+    assert torch.equal(_emulate_domination(a, m, dm.layout(b, n, 132)),
+                       want)
+    return want
+
+
+@pytest.mark.parametrize("n", _RANDOM_N)
+def test_domination_gram_on_random_graphs(n):
+    _check_domination(f"random{n}")
+
+
+def test_domination_gram_on_a_table1_surrogate():
+    _check_domination(_TABLE1)
+
+
+@pytest.mark.parametrize("n", _EDGE_N)
+def test_domination_gram_edge_cases(n):
+    want = _check_domination(f"edge{n}")
+    assert bool((want[0] == ~torch.eye(n, dtype=torch.bool)).all())
+    assert bool(want[1, 0, 1]) and bool(want[1, 1, 0])
+    assert not bool(want[2, 2].any()) and not bool(want[2, :, 3].any())
+    assert not bool(want[3].any())
+
+
+@pytest.mark.parametrize("b,n,sms,mapping,gpc,ctas", [
+    (4096, 64, 132, "graph", 4, 264),  # n64 serve rung: 1024 groups
+    (256, 320, 132, "tile", 1, 1536),  # DD rung: 6 pairs of 3 tiles
+    (16, 1024, 132, "tile", 1, 576),   # Table 1: 36 pairs of 128 x 128
+    (973, 128, 132, "graph", 1, 264),  # TWITTER
+    (8, 128, 132, "graph", 1, 8),      # fig2
+    (4096, 32, 132, "graph", 8, 264),
+    (4096, 1, 132, "graph", 8, 264),
+    (400, 64, 132, "graph", 2, 200),   # halved while groups < SMs
+    (5, 64, 132, "graph", 1, 5),
+    (3, 129, 132, "tile", 1, 9),       # past one tile
+    (3, 2048, 132, "tile", 1, 408),
+])
+def test_domination_layout_selector(b, n, sms, mapping, gpc, ctas):
+    lay = dm.layout(b, n, sms)
+    assert (lay.mapping, lay.graphs_per_cta, lay.ctas) == (mapping, gpc,
+                                                           ctas)
+    assert lay.tile == (dm.padded(n) if mapping == "graph" else dm.TILE)
+    assert lay.smem_bytes == dm.smem_bytes(n, gpc)
+    assert lay.smem_bytes <= dm.DOUBLE_MAX  # two CTAs an SM
+
+
+@pytest.mark.parametrize("b,n,sms", [
+    (17, 32, 1),  # graph: a ragged last group, a CTA taking several
+    (9, 64, 1),
+    (3, 96, 1),
+    (2, 129, 132),  # tile: ragged tiles, a mirrored pair
+    (1, 320, 132),
+])
+def test_domination_layout_covers_every_entry_once(b, n, sms):
+    lay = dm.layout(b, n, sms)
+    if lay.mapping == "graph":
+        assert lay.ctas < -(-b // lay.graphs_per_cta)
+    assert bool((_domination_writes(lay, b, n) == 1).all())
+
+
+def test_domination_smem_and_ctas():
+    # every N the graph mapping takes, at the most graphs a CTA holds, and
+    # the tile mapping past Table 1, fit two CTAs an SM
+    for n in range(1, dm.GRAPH_MAX_NP + 1):
+        lay = dm.layout(1 << 16, n, 132)
+        assert lay.mapping == "graph" and lay.smem_bytes <= dm.DOUBLE_MAX
+        per = lay.graphs_per_cta * dm.warp_tiles(lay.tile, lay.tile)
+        assert per <= dm.WARPS < 2 * per  # as many graphs as the warps fit
+    for n in (129, 1024, 4096):
+        assert dm.layout(1, n, 132).smem_bytes <= dm.DOUBLE_MAX
+    assert dm.layout(1, 8192, 132).smem_bytes <= dm.SMEM_MAX
+    # the main path's shapes give a CTA an SM at least
+    for b, n in ((4096, 64), (256, 320), (16, 1024)):
+        assert dm.layout(b, n, 132).ctas >= 132
