@@ -11,8 +11,9 @@ port's five paths:
 * reduce -> repack -> persist through ``make_topo_plan`` at three sizes: the
   n64 serve rung (4096 graphs), the DD rung of Table 2 (256 graphs of 320
   vertices) and Table 1's protocol (16 graphs of 1024 vertices);
-* the paper's Fig 2 path: clustering coefficients (the common-neighbors
-  kernel) on the n64 batch, on Table 1's batch and on the TWITTER surrogate;
+* the paper's Fig 2 path: clustering coefficients (one launch of the
+  common-neighbors kernel's fused row-sum epilogue) on the n64 batch, on
+  Table 1's batch and on the TWITTER surrogate;
   a TopoIndex over the n64 diagrams (embedding, the pairwise-L1 Gram,
   kNN queries without and with the LSH stage, a save/load round trip); and
   the three probes of ``benchmarks/fig2_clustering.py``, whose persistence-
@@ -42,15 +43,17 @@ CUDA results are compared with the same functions run on the CPU: bitwise
 where the computation is exact, within a stated tolerance where float sums
 run in another order.  The kernel checks also run ``kcore_peel`` at every
 cluster size its selector returns on this card, ``domination`` on each
-side of the N = 128 that divides its two work mappings, and hold both
-``pairwise_l1`` layouts against each other bitwise.  Then one n64
+side of the N = 128 that divides its two work mappings, both epilogues of
+``common_neighbors`` there too, and hold both ``pairwise_l1`` layouts
+against each other bitwise.  Then one n64
 execution, one n64 clustering call, one index run (and the sharded LSH
 query alone), one full-tensor Sinkhorn call and DD-rung exact_w calls in
 both layouts are profiled for device time by kernel, and each kernel is
 timed at the largest input each phase gave it (``kcore_peel``,
 ``domination``, ``pairwise_l1`` and the auction kernels also on the
 device, behind a sleep that keeps the host out of the time, with the
-cluster size, mapping or layout the launch took; the auction kernels also
+cluster size, mapping or layout the launch took; ``common_neighbors`` in
+both epilogues; the auction kernels also
 per round of their slowest problem).  Each phase prints one JSON line; any failure exits
 non-zero.  The last two lines are the ``kernels`` summary (launches on the
 main path, error against the plain version, times and bounds) after the
@@ -339,6 +342,22 @@ def _random_graphs(b, n, p, seed, device):
             torch.from_numpy(mask).to(device))
 
 
+def _raw_graphs(b, n, p, seed, device):
+    """Symmetric graphs whose dead vertices keep their edges (the fused
+    clustering epilogue masks them); graph 1 is all dead, unless it is
+    the only one."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    adj = np.triu(rng.random((b, n, n), dtype=np.float32) < p, 1)
+    adj = adj | adj.transpose(0, 2, 1)
+    mask = rng.random((b, n)) < 0.8
+    mask[min(1, b - 1)] &= b == 1
+    return (torch.from_numpy(adj).to(device),
+            torch.from_numpy(mask).to(device))
+
+
 def _bit31_blocks(g, s, r, seed, device):
     """Sparse random columns, a third of them with a row 31 mod 32."""
     import numpy as np
@@ -428,7 +447,9 @@ def phase_kernel_checks(dev) -> dict:
     from repro_torch.core.filtration import build_filtered_complex
     from repro_torch.core.persistence import _block_caps, pack_boundary_blocks
     from repro_torch.kernels import ref
-    from repro_torch.kernels.common_neighbors import common_neighbors_cuda
+    from repro_torch.kernels.common_neighbors import (
+        common_neighbors_cuda, common_neighbors_rowsums_cuda)
+    from repro_torch.kernels.common_neighbors import layout as cn_layout
     from repro_torch.kernels.domination import domination_cuda
     from repro_torch.kernels.gf2_reduce import gf2_reduce_cuda
     from repro_torch.kernels.kcore_peel import cluster_size, kcore_peel_cuda
@@ -536,6 +557,40 @@ def phase_kernel_checks(dev) -> dict:
     check(common_neighbors_cuda(torch.zeros((0, 8, 8), dtype=torch.bool,
                                             device=dev)).shape == (0, 8, 8),
           "common_neighbors on an empty batch")
+    # its fused clustering epilogue: ragged N up to 2048 on both mappings,
+    # dead vertices with their edges kept, an all-dead graph, complete and
+    # empty graphs; two launches equal
+    for b, n in ((5, 1), (5, 31), (5, 33), (17, 64), (5, 96), (5, 128),
+                 (5, 129), (3, 320), (3, 1000), (2, 2048)):
+        adj, mask = _raw_graphs(b, n, min(0.5, 8.0 / n), seed=n + 2,
+                                device=dev)
+        got = common_neighbors_rowsums_cuda(adj, mask)
+        again = common_neighbors_rowsums_cuda(adj, mask)
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"common_neighbors row sums {[b, n]}: two launches differ")
+        record("common_neighbors",
+               [b, n, "rowsums", cn_layout(b, n, sms, sums=True).mapping],
+               max_abs_err(got, ref.common_neighbors_rowsums_ref(adj, mask)))
+    for n in (7, 100, 200):
+        full = ~torch.eye(n, dtype=torch.bool, device=dev)
+        adj = torch.stack([full, torch.zeros_like(full), full]).contiguous()
+        mask = torch.ones((3, n), dtype=torch.bool, device=dev)
+        mask[2, n // 2:] = False
+        tri2, deg = common_neighbors_rowsums_cuda(adj, mask)
+        half = n // 2
+        check(tri2[0].tolist() == [(n - 1) * (n - 2)] * n
+              and deg[0].tolist() == [n - 1] * n and not bool(tri2[1].any())
+              and tri2[2].tolist() == [(half - 1) * (half - 2)] * half
+              + [0] * (n - half),
+              f"common_neighbors row sums: complete/empty graphs of {n}")
+        record("common_neighbors", [3, n, "rowsums complete+empty"],
+               max_abs_err([tri2, deg],
+                           ref.common_neighbors_rowsums_ref(adj, mask)))
+    tri2, deg = common_neighbors_rowsums_cuda(
+        torch.zeros((0, 8, 8), dtype=torch.bool, device=dev),
+        torch.zeros((0, 8), dtype=torch.bool, device=dev))
+    check(tri2.shape == deg.shape == (0, 8),
+          "common_neighbors row sums on an empty batch")
 
     # pairwise_l1: ragged M, N (M != N and x = y) and D, values up to 64
     gen = torch.Generator(device="cpu").manual_seed(17)
@@ -672,7 +727,12 @@ class Recorder:
     def install(self):
         from repro_torch.kernels import ops
 
-        originals = {name: getattr(ops, f"{name}_cuda") for name in REPLACES}
+        # each wrapper's attribute in ops -> its kernel's name; the
+        # clustering path launches common_neighbors through its fused
+        # epilogue
+        names = {f"{name}_cuda": name for name in REPLACES}
+        names["common_neighbors_rowsums_cuda"] = "common_neighbors"
+        originals = {attr: getattr(ops, attr) for attr in names}
         sizes = {"kcore_peel": lambda adj, *a: adj.numel(),
                  "domination": lambda adj, *a: adj.numel(),
                  "gf2_reduce": lambda blocks, *a: sum(b.numel()
@@ -698,16 +758,16 @@ class Recorder:
                 return fn(*args)
             return recorded
 
-        for name, fn in originals.items():
-            setattr(ops, f"{name}_cuda", wrap(name, fn, sizes[name]))
+        for attr, fn in originals.items():
+            setattr(ops, attr, wrap(names[attr], fn, sizes[names[attr]]))
         return originals
 
     @staticmethod
     def uninstall(originals):
         from repro_torch.kernels import ops
 
-        for name, fn in originals.items():
-            setattr(ops, f"{name}_cuda", fn)
+        for attr, fn in originals.items():
+            setattr(ops, attr, fn)
 
 
 def _clone(args):
@@ -1850,7 +1910,7 @@ def _profile(name, fn, reps: int = 1) -> dict:
     busy_ms = sum(r[0] for r in rows)
     ported = ("kcore_peel_kernel", "domination_gram_kernel",
               "gf2_reduce_kernel",
-              "pack_rows_kernel", "common_neighbors_tile_kernel",
+              "common_neighbors_gram_kernel",
               "pairwise_l1_kernel", "pairwise_l1_small_kernel",
               "sinkhorn_lse_kernel",
               "sinkhorn_pair_sum_kernel", "sum_partials_kernel",
@@ -1875,8 +1935,9 @@ def phase_profile(g, caps) -> dict:
 
 
 def phase_profile_clustering(g, reps: int = 20) -> dict:
-    """``_profile`` of ``reps`` steady n64 clustering calls: splits the
-    common-neighbors time into its pack and tile passes."""
+    """``_profile`` of ``reps`` steady n64 clustering calls: the
+    common-neighbors kernel's fused epilogue (one launch a call) against
+    PyTorch's ops around it."""
     from repro_torch.kernels.ops import clustering_coefficients
 
     return _profile("profile_clustering_n64",
@@ -2039,32 +2100,85 @@ def _time_gf2(blocks, n_rows) -> dict:
             "library_ms": None, "bound_ms": bt, "bound_by": by}
 
 
-def _time_common_neighbors(adj) -> dict:
-    """Kernel, plain version, and one torch.bmm of the bf16 0/1 matrices
-    with the same epilogue (exact while counts stay <= 256, which the run
-    checks); the bound counts one AND, POPC and ADD per nonzero A[u, v] and
-    32-vertex word."""
+def _common_neighbors_bounds(b, n, edges, sums) -> dict:
+    """The least time either epilogue could take, the larger of its bytes
+    at HBM_BYTES_PER_S (one read of adj; the (B, N, N) int32 counts, or
+    the mask and the two (B, N) int32 sums) and the int8 operations this
+    input needs at INT8_TC_OPS_PER_S: a count is needed on each of the
+    ``edges`` nonzeros of the (live-restricted) adjacency only, and G is
+    symmetric, so one inner product of N products per unordered edge,
+    edges * N operations with an FMA as two."""
+    moved = b * n * n + (9 * b * n if sums else 4 * b * n * n)
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = float(edges) * n / INT8_TC_OPS_PER_S * 1e3
+    bt, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return {"bound_ms": bt, "bound_by": by}
+
+
+def _time_common_neighbors(adj, mask=None) -> dict:
+    """Both epilogues of the one kernel at the recorded input (adj and the
+    live mask the clustering path gave the fused one; all live when the
+    counts were recorded): each between events and on the device, its
+    plain version, one bf16 torch.bmm of the 0/1 matrices with the same
+    epilogue (exact while counts stay <= 256, which the run checks; for
+    the fused form also the masking and both row sums), and its bound.
+    The counts run on the live-restricted adjacency, the input the
+    clustering path gave them before the fused epilogue.  The row's own
+    numbers are the fused epilogue's, which the main path launches; the
+    counts' are under "cn"."""
     import torch
+    from repro_torch.kernels import common_neighbors as cn
     from repro_torch.kernels import ref
-    from repro_torch.kernels.common_neighbors import common_neighbors_cuda
 
     b, n, _ = adj.shape
-    want = ref.common_neighbors_ref(adj)
+    if mask is None:
+        mask = torch.ones((b, n), dtype=torch.bool, device=adj.device)
+    live = (adj & mask[:, None, :] & mask[:, :, None]).contiguous()
+    sms = torch.cuda.get_device_properties(adj.device).multi_processor_count
+    lay = cn.layout(b, n, sms, sums=True)
+    want_cn = ref.common_neighbors_ref(live)
+    want = ref.common_neighbors_rowsums_ref(adj, mask)
 
-    def library():
-        a = adj.to(torch.bfloat16)
+    def library_cn():
+        a = live.to(torch.bfloat16)
         return (torch.bmm(a, a) * a).to(torch.int32)
 
-    nonzeros = int(adj.sum())
-    bt, by = bound(5 * adj.numel(), 3.0 * nonzeros * ((n + 31) // 32))
+    def library():
+        a = (adj & mask[:, None, :] & mask[:, :, None]).to(torch.bfloat16)
+        c = torch.bmm(a, a) * a
+        return (c.sum(-1, dtype=torch.float32).to(torch.int32),
+                a.sum(-1, dtype=torch.float32).to(torch.int32))
+
+    def counts():
+        return cn.common_neighbors_cuda(live)
+
+    def sums():
+        return cn.common_neighbors_rowsums_cuda(adj, mask)
+
+    lib_cn = library_cn()
+    lib = library()
+    edges = int(live.sum())
     return {"name": "common_neighbors", "shape": [b, n, n],
-            "nonzeros": nonzeros,
-            "max_abs_err": max_abs_err([common_neighbors_cuda(adj)], [want]),
-            "ms": cuda_ms(lambda: common_neighbors_cuda(adj)),
-            "plain_ms": cuda_ms(lambda: ref.common_neighbors_ref(adj)),
+            "epilogue": "rowsums", "mapping": lay.mapping,
+            "graphs_per_cta": lay.graphs_per_cta, "ctas": lay.ctas,
+            "nonzeros": int(adj.sum()), "live_nonzeros": edges,
+            "live": int(mask.sum()),
+            "max_abs_err": max(max_abs_err(sums(), want),
+                               max_abs_err([counts()], [want_cn])),
+            "ms": cuda_ms(sums), "device_ms": device_ms(sums),
+            "host_ms": host_ms_per_call(sums),
+            "plain_ms": cuda_ms(lambda: ref.common_neighbors_rowsums_ref(
+                adj, mask)),
             "library_ms": cuda_ms(library),
-            "library_exact": bool(torch.equal(library(), want)),
-            "bound_ms": bt, "bound_by": by}
+            "library_exact": bool(torch.equal(lib[0], want[0])
+                                  and torch.equal(lib[1], want[1])),
+            **_common_neighbors_bounds(b, n, edges, True),
+            "cn": {"ms": cuda_ms(counts), "device_ms": device_ms(counts),
+                   "plain_ms": cuda_ms(
+                       lambda: ref.common_neighbors_ref(live)),
+                   "library_ms": cuda_ms(library_cn),
+                   "library_exact": bool(torch.equal(lib_cn, want_cn)),
+                   **_common_neighbors_bounds(b, n, edges, False)}}
 
 
 def _time_pairwise_l1(x, y) -> dict:

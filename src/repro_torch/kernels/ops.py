@@ -17,7 +17,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.auction_lap import (
     DEFAULT_EPS0, DEFAULT_EPS_FACTOR, auction_lap_collapsed_cuda,
     auction_lap_cuda, default_max_rounds, eps_ladder)
-from repro_torch.kernels.common_neighbors import common_neighbors_cuda
+from repro_torch.kernels.common_neighbors import (
+    common_neighbors_cuda, common_neighbors_rowsums_cuda)
 from repro_torch.kernels.domination import domination_cuda
 from repro_torch.kernels.gf2_reduce import MAX_BLOCKS, gf2_reduce_cuda
 from repro_torch.kernels.hamming import (
@@ -156,14 +157,33 @@ def clustering_coefficients(adj: torch.Tensor,
     """(B, N) f32 local clustering coefficients via common_neighbors.
 
     The adjacency is restricted to live vertices first, so padding rows
-    (and vertices of degree < 2) give 0, never NaN.
+    (and vertices of degree < 2) give 0, never NaN.  On CUDA one launch of
+    the common-neighbors kernel's fused epilogue gives the row sums (adj
+    taken to be symmetric); nothing of size (B, N, N) is written.
     """
     b, n = mask.shape
     _check("clustering_coefficients mask", mask, torch.bool, (b, n),
            adj.device)
-    adj = adj & mask[:, None, :] & mask[:, :, None]
-    tri2 = common_neighbors(adj).sum(-1)  # 2 * triangles through u
-    deg = adj.sum(-1).to(torch.float32)
+    if _route(adj.device, "common_neighbors"):
+        adj = adj.contiguous()
+        _check("clustering_coefficients adj", adj, torch.bool, (b, n, n),
+               adj.device)
+        tri2, deg = common_neighbors_rowsums_cuda(adj, mask)
+        if b and n:
+            counters.KERNEL_LAUNCHES["common_neighbors"] += 1
+    else:
+        adj = adj & mask[:, None, :] & mask[:, :, None]
+        tri2 = common_neighbors(adj).sum(-1)  # 2 * triangles through u
+        deg = adj.sum(-1)
+    return clustering_from_sums(tri2, deg, mask)
+
+
+def clustering_from_sums(tri2: torch.Tensor, deg: torch.Tensor,
+                         mask: torch.Tensor) -> torch.Tensor:
+    """(B, N) f32 coefficients tri2 / (deg (deg - 1)) of live vertices of
+    degree >= 2, else 0, from the integer row sums (twice the triangles
+    through each vertex, and its degree)."""
+    deg = deg.to(torch.float32)
     denom = deg * (deg - 1.0)
     cc = torch.where(denom > 0, tri2.to(torch.float32) / denom, 0.0)
     return torch.where(mask, cc, 0.0)

@@ -53,6 +53,18 @@ def common_neighbors_ref(adj: torch.Tensor) -> torch.Tensor:
     return (torch.bmm(a, a) * a).to(torch.int32)
 
 
+def common_neighbors_rowsums_ref(adj: torch.Tensor, mask: torch.Tensor):
+    """The clustering coefficients' sums of ``common_neighbors_ref``: with
+    A' = adj restricted to live vertices, tri2[b, u] = sum_v cn'[b, u, v]
+    (twice the triangles through u) and deg[b, u] = sum_v A'[b, u, v].
+
+    adj (B, N, N) bool, mask (B, N) bool -> (tri2, deg), (B, N) int32 each.
+    """
+    adj = adj & mask[:, None, :] & mask[:, :, None]
+    return (common_neighbors_ref(adj).sum(-1).to(torch.int32),
+            adj.sum(-1).to(torch.int32))
+
+
 # elements of the (rows, N, D) broadcast that pairwise_l1_ref materializes
 # at a time (256 MiB of float32)
 L1_CHUNK = 1 << 26

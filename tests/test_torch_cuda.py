@@ -270,6 +270,98 @@ def test_common_neighbors_kernel_complete_empty_and_no_graphs(cuda):
     assert common_neighbors_cuda(empty).shape == (0, 9, 9)
 
 
+def _raw_graphs(b, n, p, seed, device):
+    """Symmetric graphs whose dead vertices keep their edges; the second
+    graph is all dead, the third complete."""
+    rng = np.random.default_rng(seed)
+    adj = np.triu(rng.random((b, n, n)) < p, 1)
+    adj = adj | adj.transpose(0, 2, 1)
+    mask = rng.random((b, n)) < 0.8
+    mask[1] = False
+    adj[2] = ~np.eye(n, dtype=bool)
+    return (torch.from_numpy(adj).to(device),
+            torch.from_numpy(mask).to(device))
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 64, 128, 320, 1024, 2048])
+def test_common_neighbors_rowsums_kernel(cuda, n):
+    from repro_torch.kernels.common_neighbors import (
+        common_neighbors_rowsums_cuda)
+
+    adj, mask = _raw_graphs(4, n, min(0.5, 8.0 / n), seed=n + 3, device=cuda)
+    got = common_neighbors_rowsums_cuda(adj, mask)
+    want = ref.common_neighbors_rowsums_ref(adj, mask)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    again = common_neighbors_rowsums_cuda(adj, mask)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
+@pytest.mark.parametrize("n", [65, 96, 128, 129, 257])
+def test_common_neighbors_kernel_both_mappings(cuda, n):
+    # the counts on each side of N = 128, where the graph mapping gives way
+    # to mirrored tile pairs; a complete graph among random ones
+    adj, _ = _raw_graphs(5, n, min(0.5, 8.0 / n), seed=n, device=cuda)
+    got = common_neighbors_cuda(adj)
+    assert torch.equal(got, ref.common_neighbors_ref(adj))
+    assert torch.equal(common_neighbors_cuda(adj), got)
+
+
+def test_common_neighbors_rowsums_kernel_edge_cases(cuda):
+    from repro_torch.kernels.common_neighbors import (
+        common_neighbors_rowsums_cuda)
+
+    for n in (70, 200):
+        full = ~torch.eye(n, dtype=torch.bool, device=cuda)
+        adj = torch.stack([full, torch.zeros_like(full), full])
+        mask = torch.ones((3, n), dtype=torch.bool, device=cuda)
+        mask[2, n // 2:] = False
+        tri2, deg = common_neighbors_rowsums_cuda(adj, mask)
+        live = n // 2
+        assert tri2[0].tolist() == [(n - 1) * (n - 2)] * n
+        assert deg[0].tolist() == [n - 1] * n
+        assert not bool(tri2[1].any()) and not bool(deg[1].any())
+        assert tri2[2].tolist() == ([(live - 1) * (live - 2)] * live
+                                    + [0] * (n - live))
+    empty = torch.zeros((0, 9, 9), dtype=torch.bool, device=cuda)
+    tri2, deg = common_neighbors_rowsums_cuda(empty, empty[:, 0])
+    assert tri2.shape == deg.shape == (0, 9)
+
+
+def test_common_neighbors_smem_matches_layout(cuda):
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import common_neighbors as cn
+
+    fn = _build.function("common_neighbors", "common_neighbors_smem_bytes",
+                         [ctypes.c_int] * 3, ctypes.c_longlong)
+    for n in (1, 33, 64, 96, 128, 129, 320, 1024, 2048):
+        for sms in (1, 132):
+            for sums in (False, True):
+                lay = cn.layout(64, n, sms, sums=sums)
+                assert fn(n, lay.graphs_per_cta, sums) == lay.smem_bytes
+    assert fn(64, 8, 0) == -1  # more graphs than a CTA's warps take
+    assert fn(320, 2, 1) == -1  # the tile mapping takes one graph a CTA
+
+
+def test_clustering_on_the_card_writes_no_count_tensor(cuda):
+    # the fused epilogue: one launch, and no (B, N, N) int32 allocation
+    from repro_torch import counters
+
+    adj, mask = _raw_graphs(64, 256, 0.05, seed=9, device=cuda)
+    ops.clustering_coefficients(adj, mask)
+    torch.cuda.synchronize()
+    counters.reset()
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    cc = ops.clustering_coefficients(adj, mask)
+    torch.cuda.synchronize()
+    assert counters.snapshot()["common_neighbors"] == 1
+    assert torch.cuda.max_memory_allocated(cuda) - base < adj.numel()
+    assert torch.equal(cc.cpu(), ops.clustering_coefficients(adj.cpu(),
+                                                             mask.cpu()))
+
+
 def _l1_ok(got, x, y):
     want = ref.pairwise_l1_ref(x, y)
     tol = (1e-5 * (x.abs().sum(1)[:, None] + y.abs().sum(1)[None, :])

@@ -223,6 +223,24 @@ def test_common_neighbors_and_clustering_match_repro(n, tile):
     assert counters.snapshot() == before  # the plain path launches nothing
 
 
+@pytest.mark.parametrize("n,tile", [(8, 8), (20, 8), (33, 16), (48, 16)])
+def test_common_neighbors_rowsums_match_repro_clustering(n, tile):
+    # the fused epilogue's plain version: the row sums repro's
+    # clustering_coefficients divides, and the same coefficients from them
+    adj, mask = _raw_graphs(4, n, 0.35, seed=n + tile + 1)
+    adj_j, mask_j = jnp.asarray(adj), jnp.asarray(mask)
+    live = adj_j & mask_j[:, None, :] & mask_j[:, :, None]
+    tri2, deg = ref.common_neighbors_rowsums_ref(_cpu(adj), _cpu(mask))
+    assert tri2.dtype == deg.dtype == torch.int32
+    np.testing.assert_array_equal(
+        tri2.numpy(), np.asarray(ops_j.common_neighbors(live, tile=tile)
+                                 .sum(-1)))
+    np.testing.assert_array_equal(deg.numpy(), np.asarray(live.sum(-1)))
+    np.testing.assert_array_equal(
+        ops.clustering_from_sums(tri2, deg, _cpu(mask)).numpy(),
+        np.asarray(ops_j.clustering_coefficients(adj_j, mask_j, tile=tile)))
+
+
 def test_common_neighbors_complete_and_empty_graphs():
     n = 7
     full = ~torch.eye(n, dtype=torch.bool)

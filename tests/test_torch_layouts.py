@@ -1,5 +1,5 @@
-"""The kcore_peel, pairwise_l1 and domination kernels' layouts, emulated
-on the CPU.
+"""The kcore_peel, pairwise_l1, domination and common_neighbors kernels'
+layouts, emulated on the CPU.
 
 The CUDA kernels run only on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``).  What their layouts must preserve is checked here, in
@@ -33,6 +33,18 @@ torch, with zero tolerance:
   complete graphs, twins, isolated vertices and an all-dead mask.  The
   CTAs and warp tiles of each mapping write every entry once, and the
   launch stays within shared memory.
+* ``common_neighbors`` runs the same Gram over raw rows in the same two
+  mappings, with two epilogues: the counts where the edge bit (read from
+  the staged u rows) is set, mirrored off the diagonal pairs; or, with
+  the mask in the A side, the row sums of the live-restricted counts
+  (column sums for the mirrored block) and the degrees from the diagonal
+  pairs.  The emulation of each, at the layout its selector picks, is
+  held bitwise against the port's plain versions, and those against
+  ``repro``'s interpret-mode Pallas kernel and ``clustering_coefficients``,
+  on random graphs of ragged N with dead vertices whose edges are kept,
+  complete, empty, half-dead, all-dead and star graphs; every pair is
+  gathered once and every degree once, and both epilogues fit two CTAs an
+  SM up to N = 2048.
 """
 import functools
 
@@ -44,6 +56,7 @@ import torch
 from repro.data.graphs import load_large_network
 from repro.kernels import ops as ops_j
 from repro.kernels import ref as ref_j
+from repro_torch.kernels import common_neighbors as cn
 from repro_torch.kernels import domination as dm
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.kcore_peel import MAX_CLUSTER, cluster_size
@@ -605,3 +618,266 @@ def test_domination_smem_and_ctas():
     # the main path's shapes give a CTA an SM at least
     for b, n in ((4096, 64), (256, 320), (16, 1024)):
         assert dm.layout(b, n, 132).ctas >= 132
+
+
+def _emulate_common_neighbors(adj, mask, lay, sums):
+    """One launch of the common-neighbors kernel at layout ``lay``, tile
+    pair by tile pair: the int32 Gram of the A side (raw adjacency bytes,
+    every column masked with ``sums``) against the raw B side over the
+    kernel's K chunks, and the edge bits A[u, v] read from the u rows at
+    the v tile's columns.  The cn epilogue writes the counts where the bit
+    is set, and their transpose in the mirrored block of an off-diagonal
+    pair; the fused one adds each pair's row sums (bit, both live bits)
+    into tri2 of its u rows and, off the diagonal, its column sums into
+    tri2 of its v rows, and takes deg of a tile's rows (the masked A
+    side's row sums, an mma against ones) from its diagonal pair.  Returns
+    cn (B, N, N), or (tri2, deg) (B, N), int32."""
+    b, n = mask.shape
+    np_ = dm.padded(n)
+    raw = torch.zeros((b, np_, np_), dtype=torch.int8)
+    raw[:, :n, :n] = adj.to(torch.int8)
+    m = torch.zeros((b, np_), dtype=torch.int8)
+    m[:, :n] = mask.to(torch.int8)
+    side_a = raw & m[:, None, :] if sums else raw
+    k_chunk = np_ if lay.mapping == "graph" else dm.CHUNK
+    tiles = -(-np_ // lay.tile)
+    ones = torch.ones((b, 1, np_), dtype=torch.int8)
+
+    def gram(x, y):
+        acc = torch.zeros((b, x.shape[1], y.shape[1]), dtype=torch.int32)
+        for k0 in range(0, np_, k_chunk):
+            acc += torch.bmm(x[..., k0:k0 + k_chunk].double(),
+                             y[..., k0:k0 + k_chunk].double().transpose(1, 2)
+                             ).to(torch.int32)
+        return acc
+
+    out = torch.zeros((b, np_, np_), dtype=torch.int32)
+    tri2 = torch.zeros((b, np_), dtype=torch.int32)
+    deg = torch.zeros((b, np_), dtype=torch.int32)
+    for p in range(tiles * (tiles + 1) // 2):
+        iu, iv = _pair_of(p, tiles)
+        us = slice(iu * lay.tile, min(np_, (iu + 1) * lay.tile))
+        vs = slice(iv * lay.tile, min(np_, (iv + 1) * lay.tile))
+        kept = torch.where(raw[:, us, vs] != 0,
+                           gram(side_a[:, us], raw[:, vs]), 0)
+        if not sums:
+            out[:, us, vs] = kept
+            if iu != iv:
+                out[:, vs, us] = kept.transpose(1, 2)
+            continue
+        kept = kept * m[:, us, None] * m[:, None, vs]
+        tri2[:, us] += kept.sum(-1, dtype=torch.int32)
+        if iu != iv:
+            tri2[:, vs] += kept.sum(-2, dtype=torch.int32)
+        else:
+            deg[:, us] = gram(side_a[:, us], ones)[..., 0] * m[:, us]
+    if sums:
+        return tri2[:, :n], deg[:, :n]
+    return out[:, :n, :n]
+
+
+def _cn_gathers(lay, b, n):
+    """How often one fused launch at ``lay`` gathers each (graph, u, v)
+    into a row sum, and writes each deg[u]: the pairs as the cn epilogue
+    writes them (``_domination_writes``: the two kernels share their
+    mappings), deg as the kernel's warps write it.  A CTA's warp w takes
+    warp tile r = w - s rbs cbs of graph s = w // (rbs cbs) of its group
+    (the tile mapping: of its pair, s = 0), rows 32 (r // cbs).., columns
+    64 (r % cbs)..; rbs = rows / 32 and cbs = ceil(columns / 64) of the
+    CTA's tile; warps past gpc rbs cbs idle.  Only the warps of column
+    block 0 write deg, and in the tile mapping only in a diagonal pair
+    (every pair of the graph mapping is one)."""
+    np_ = dm.padded(n)
+    degs = torch.zeros((b, np_), dtype=torch.int32)
+
+    def warp_rows(gpc, tu, tv):
+        """(s, first row) of each warp that writes deg, rows within the
+        u tile."""
+        rbs, cbs = tu // 32, -(-tv // 64)
+        for w in range(dm.WARPS):
+            if w < gpc * rbs * cbs:
+                s, r = divmod(w, rbs * cbs)
+                rb, cb = divmod(r, cbs)
+                if cb == 0:
+                    yield s, rb * 32
+
+    if lay.mapping == "graph":
+        gpc = lay.graphs_per_cta
+        for cta in range(lay.ctas):
+            for grp in range(cta, -(-b // gpc), lay.ctas):
+                for s, ra in warp_rows(gpc, np_, np_):
+                    if grp * gpc + s < b:
+                        degs[grp * gpc + s, ra:ra + 32] += 1
+    else:
+        tiles = -(-np_ // lay.tile)
+        pairs = tiles * (tiles + 1) // 2
+        for cta in range(lay.ctas):
+            g, p = divmod(cta, pairs)
+            iu, iv = _pair_of(p, tiles)
+            if iu == iv:
+                tu = min(lay.tile, np_ - iu * lay.tile)
+                for _, ra in warp_rows(1, tu, tu):
+                    u0 = iu * lay.tile + ra
+                    degs[g, u0:u0 + 32] += 1
+    return _domination_writes(lay, b, n), degs[:, :n]
+
+
+def _cn_edge_graphs(n):
+    """Five graphs of n vertices: complete and empty with every vertex
+    live, complete with its upper half dead, complete with every vertex
+    dead, and a star (no triangle) with its centre live."""
+    full = ~np.eye(n, dtype=bool)
+    star = np.zeros((n, n), bool)
+    star[0, 1:] = star[1:, 0] = True
+    mask = np.ones((5, n), bool)
+    mask[2, n // 2:] = False
+    mask[3] = False
+    return np.stack([full, np.zeros_like(full), full, full, star]), mask
+
+
+_CN_EDGE_N = [7, 64, 129]
+
+
+@functools.lru_cache(maxsize=None)
+def _cn_cases():
+    """Every case by name: (adj, mask) numpy, symmetric, with dead vertices
+    whose edges are kept."""
+    cases = {f"random{n}": _dom_graphs(5, n, min(0.5, 8.0 / n), seed=n + 7)
+             for n in _RANDOM_N}
+    cases.update({f"edge{n}": _cn_edge_graphs(n) for n in _CN_EDGE_N})
+    return cases
+
+
+@functools.lru_cache(maxsize=None)
+def _repro_common_neighbors():
+    """repro's answer on every case, by name: its interpret-mode Pallas
+    kernel's counts of the raw adjacency, the same kernel's counts of the
+    live-restricted adjacency summed over rows with its degrees (the sums
+    ``repro``'s ``clustering_coefficients`` divides), and those
+    coefficients.  The cases of N <= 128 run as one batch padded to 128
+    vertices with dead isolated ones, which change no entry among the first
+    N; the others at their own N."""
+    cases = _cn_cases()
+    out = {}
+    small = [k for k, (_, m) in cases.items() if m.shape[1] <= 128]
+    groups = [small] + [[k] for k in cases if k not in small]
+    for names in groups:
+        pad = max(cases[k][1].shape[1] for k in names)
+        pad = 128 if names is small else pad
+        total = sum(cases[k][1].shape[0] for k in names)
+        adj = np.zeros((total, pad, pad), bool)
+        mask = np.zeros((total, pad), bool)
+        at, i = [], 0
+        for k in names:
+            a, m = cases[k]
+            bk, n = m.shape
+            adj[i:i + bk, :n, :n], mask[i:i + bk, :n] = a, m
+            at.append((k, n, i, bk))
+            i += bk
+        aj, mj = jax.numpy.asarray(adj), jax.numpy.asarray(mask)
+        live = aj & mj[:, None, :] & mj[:, :, None]
+        cn = np.asarray(ops_j.common_neighbors(aj, tile=128))
+        tri2 = np.asarray(ops_j.common_neighbors(live, tile=128).sum(-1))
+        deg = np.asarray(live.sum(-1))
+        cc = np.asarray(ops_j.clustering_coefficients(aj, mj, tile=128))
+        for k, n, i, bk in at:
+            out[k] = (cn[i:i + bk, :n, :n], tri2[i:i + bk, :n],
+                      deg[i:i + bk, :n], cc[i:i + bk, :n])
+    return out
+
+
+def _check_common_neighbors(name):
+    """Both epilogues, emulated at the layout the selector picks, bitwise
+    the port's plain versions, which are bitwise repro's counts, sums and
+    coefficients."""
+    adj, mask = _cn_cases()[name]
+    a, m = torch.from_numpy(adj), torch.from_numpy(mask)
+    b, n = mask.shape
+    cn_j, tri2_j, deg_j, cc_j = _repro_common_neighbors()[name]
+    want = ref.common_neighbors_ref(a)
+    np.testing.assert_array_equal(want.numpy(), cn_j)
+    assert torch.equal(
+        _emulate_common_neighbors(a, m, cn.layout(b, n, 132), False), want)
+    tri2, deg = ref.common_neighbors_rowsums_ref(a, m)
+    np.testing.assert_array_equal(tri2.numpy(), tri2_j)
+    np.testing.assert_array_equal(deg.numpy(), deg_j)
+    got = _emulate_common_neighbors(a, m, cn.layout(b, n, 132, sums=True),
+                                    True)
+    assert torch.equal(got[0], tri2) and torch.equal(got[1], deg)
+    cc = ops.clustering_from_sums(*got, m)
+    np.testing.assert_array_equal(cc.numpy(), cc_j)
+    assert torch.equal(cc, ops.clustering_coefficients(a, m))
+    return want, got
+
+
+@pytest.mark.parametrize("n", _RANDOM_N)
+def test_common_neighbors_gram_on_random_graphs(n):
+    _check_common_neighbors(f"random{n}")
+
+
+@pytest.mark.parametrize("n", _CN_EDGE_N)
+def test_common_neighbors_gram_edge_cases(n):
+    cn_, (tri2, deg) = _check_common_neighbors(f"edge{n}")
+    full = ~torch.eye(n, dtype=torch.bool)
+    assert bool((cn_[0][full] == n - 2).all()) and not bool(cn_[1].any())
+    live = n // 2
+    assert tri2[0].tolist() == [(n - 1) * (n - 2)] * n
+    assert deg[0].tolist() == [n - 1] * n
+    assert tri2[2, :live].tolist() == [(live - 1) * (live - 2)] * live
+    assert not bool(tri2[2, live:].any()) and not bool(deg[2, live:].any())
+    assert not bool(tri2[1].any()) and not bool(tri2[3].any())
+    assert not bool(deg[3].any()) and not bool(tri2[4].any())
+    assert deg[4].tolist() == [n - 1] + [1] * (n - 1)
+
+
+@pytest.mark.parametrize("b,n,sms,mapping,gpc,ctas", [
+    (4096, 64, 132, "graph", 4, 264),  # clustering_n64
+    (16, 1024, 132, "tile", 1, 576),   # clustering_n1024 (Table 1)
+    (973, 128, 132, "graph", 1, 264),  # clustering_twitter
+    (8, 128, 132, "graph", 1, 8),      # fig2
+    (4096, 32, 132, "graph", 8, 264),
+    (5, 64, 132, "graph", 1, 5),
+    (3, 129, 132, "tile", 1, 9),
+    (3, 2048, 132, "tile", 1, 408),
+])
+def test_common_neighbors_layout_selector(b, n, sms, mapping, gpc, ctas):
+    for sums in (False, True):
+        lay = cn.layout(b, n, sms, sums=sums)
+        assert (lay.mapping, lay.graphs_per_cta, lay.ctas) == (mapping, gpc,
+                                                               ctas)
+        assert lay.smem_bytes == cn.smem_bytes(n, gpc, sums)
+        assert lay.smem_bytes <= dm.DOUBLE_MAX  # two CTAs an SM
+
+
+def test_common_neighbors_smem_up_to_2048():
+    # every N the graph mapping takes, at the most graphs a CTA holds, and
+    # the tile mapping up to the card checks' 2048, fit two CTAs an SM in
+    # both epilogues; the counts' staging fits the ring it reuses
+    for sums in (False, True):
+        for n in range(1, 2049):
+            lay = cn.layout(1 << 16, n, 132, sums=sums)
+            assert lay.smem_bytes <= dm.DOUBLE_MAX, (n, sums)
+    ring = dm.STAGES * 2 * dm.TILE * (dm.CHUNK + dm.PAD)
+    assert 4 * dm.TILE * (dm.TILE + cn.OUT_PAD) <= ring
+    with pytest.raises(ValueError, match=r"\(1, 200000\)"):
+        cn.layout(1, 200000, 132, sums=True)
+    # past SUMS_MAX_N the fused epilogue's int32 tri2 could overflow
+    assert cn.layout(1, cn.SUMS_MAX_N, 132, sums=True).mapping == "tile"
+    with pytest.raises(ValueError, match=r"overflow.*\(1, 46341\)"):
+        cn.layout(1, cn.SUMS_MAX_N + 1, 132, sums=True)
+    assert cn.layout(1, cn.SUMS_MAX_N + 1, 132).mapping == "tile"
+
+
+@pytest.mark.parametrize("b,n,sms", [
+    (17, 32, 1),  # graph: a ragged last group, a CTA taking several
+    (9, 64, 1),
+    (3, 96, 1),
+    (2, 129, 132),  # tile: ragged tiles, a mirrored pair
+    (1, 320, 132),
+])
+def test_common_neighbors_layout_gathers_every_sum_once(b, n, sms):
+    lay = cn.layout(b, n, sms, sums=True)
+    pairs, degs = _cn_gathers(lay, b, n)
+    assert bool((pairs == 1).all()) and bool((degs == 1).all())
+    assert cn.layout(b, n, sms) == lay._replace(
+        smem_bytes=cn.smem_bytes(n, lay.graphs_per_cta, False))
