@@ -80,6 +80,9 @@ LANE_OPS_PER_S = 33.5e12
 MUFU_OPS_PER_S = 16 * 132 * 1.98e9
 # int8 tensor-core operations a second, dense (an FMA counts as two)
 INT8_TC_OPS_PER_S = 1979e12
+# one dependent shared-memory load on Hopper, assumed: ~30 cycles at the
+# 1.98 GHz boost clock (the gf2 chain floor's unit)
+SMEM_ROUND_TRIP_NS = 30 / 1.98
 
 REPLACES = {
     "kcore_peel": "src/repro/kernels/kcore_peel.py:42",
@@ -375,6 +378,49 @@ def _bit31_blocks(g, s, r, seed, device):
     return torch.from_numpy(words.view(np.int32)).to(device)
 
 
+def _check_gf2_layouts(record, dev, sms):
+    """gf2_reduce at every layout against its plain version: W = 1, 2, 4,
+    5, 8, 16, 32, 33 (rows to the top word, G past the SM count), an
+    all-zero block, all-zero matrices beside a last nonzero column that is
+    the matrix's last and a ragged zero tail, R < 32, G = 0, and one
+    launch of four blocks of the four layouts."""
+    import torch
+    from repro_torch.kernels import gf2_reduce as gf2
+    from repro_torch.kernels import ref
+
+    def run(name, blocks, rows):
+        got = gf2.gf2_reduce_cuda(blocks, rows)
+        for b, r, out in zip(blocks, rows, got):
+            lay = gf2.layout(*b.shape, r, sms)
+            record("gf2_reduce", [*b.shape, r, name, lay.kind, lay.lanes],
+                   max_abs_err(out, ref.gf2_reduce_ref(b, r)))
+
+    for w in (1, 2, 4, 5, 8, 16, 32, 33):
+        r = 32 * w - (5 if w > 1 else 0)
+        run("width", [_bit31_blocks(300, 64, r, seed=w, device=dev)], [r])
+    run("zero block", [torch.zeros((5, 30, 2), dtype=torch.int32,
+                                   device=dev)], [50])
+    edge = _bit31_blocks(7, 48, 100, seed=21, device=dev)
+    edge[0] = 0
+    edge[1, -1] = 0
+    edge[1, -1, 3] = 1 << 3  # row 99: claimed by the last column
+    edge[2, 20:] = 0
+    run("zero, last column, zero tail", [edge], [100])
+    small = _bit31_blocks(9, 40, 32, seed=22, device=dev) & ((1 << 20) - 1)
+    run("R < 32", [small], [20])
+    none = gf2.gf2_reduce_cuda([torch.zeros((0, 12, 2), dtype=torch.int32,
+                                            device=dev)], [40])
+    check([tuple(x.shape) for x in none[0]] == [(0, 12, 2), (0, 40), (0, 12)],
+          "gf2_reduce on G = 0")
+    mixed = [_bit31_blocks(6, s, r, seed=s, device=dev)
+             for s, r in ((90, 120), (60, 500), (50, 1200), (1024, 2048))]
+    rows = [120, 500, 1200, 2048]
+    check([gf2.layout(*b.shape, r, sms).kind for b, r in zip(mixed, rows)]
+          == ["thread", "segment", "warp", "global"],
+          "gf2_reduce: the mixed launch's layouts")
+    run("mixed launch", mixed, rows)
+
+
 def _kcore_cluster_cases(dev):
     """(B, N, mean degree) of the cluster checks: the batch that gets each
     cluster size the selector returns at N = 1024 on this card, B = 1 and
@@ -523,8 +569,8 @@ def phase_kernel_checks(dev) -> dict:
            max_abs_err(gf2_reduce_cuda([blocks], [128])[0], want))
 
     # caps that make the triangle block (8, 4096, 128) words: 2 MiB per
-    # graph, reduced in global memory (the edge block, 128 KiB, is staged
-    # in shared memory above the 48 KiB default)
+    # graph, the global layout (the edge block, 128 KiB a matrix, takes the
+    # 8-lane segment layout in shared memory above the 48 KiB default)
     adj, mask = _random_graphs(8, 256, 0.06, seed=3, device=dev)
     mask[0] = True
     adj[0] = adj[1]
@@ -537,6 +583,7 @@ def phase_kernel_checks(dev) -> dict:
     for d in range(2):
         record("gf2_reduce", list(big[d].shape),
                max_abs_err(got[d], ref.gf2_reduce_ref(big[d], caps[d])))
+    _check_gf2_layouts(record, dev, sms)
 
     # common_neighbors: ragged N up to 2048, an empty batch, and complete
     # (every edge counts N - 2) and empty graphs
@@ -2076,25 +2123,79 @@ def _time_domination(adj, mask) -> dict:
             "library_ms": cuda_ms(library), **_domination_bounds(b, n)}
 
 
-def _time_gf2(blocks, n_rows) -> dict:
-    """Kernel and plain version; the bound counts the column additions
-    this input's pivot chases need."""
+def _gf2_chains(blocks, n_rows, got):
+    """Per block: max |kernel - plain| over the three outputs, and the
+    chase's length per matrix from the plain version's counts.  A step is
+    one XOR or the claim or emptying that ends a column, so a matrix takes
+    se + additions steps, se one past its last nonzero column; a sweep
+    over every column takes S + additions iterations."""
+    import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.gf2_reduce import gf2_reduce_cuda
 
-    got = gf2_reduce_cuda(blocks, n_rows)
-    err, moved, ops = 0, 0, 0.0
-    for blk, r, out in zip(blocks, n_rows, got):
+    out = []
+    for blk, r, res in zip(blocks, n_rows, got):
         red, owner, positive, adds = ref.gf2_reduce_counted(blk, r)
-        err = max(err, max_abs_err(out, (red, owner, positive)))
+        g, s, w = blk.shape
+        nz = (blk != 0).any(-1)
+        se = torch.where(nz.any(-1), s - nz.flip(-1).int().argmax(-1), 0)
+        steps = se.long() + adds
+        out.append({"err": max_abs_err(res, (red, owner, positive)),
+                    "shape": [g, s, w], "n_rows": r,
+                    "se_max": int(se.max()) if g else 0,
+                    "adds_max": int(adds.max()) if g else 0,
+                    "adds": int(adds.sum()), "se": int(se.sum()),
+                    "steps": steps})
+    return out
+
+
+def _time_gf2(blocks, n_rows) -> dict:
+    """Kernel (between events, on the device, and the wrapper's host time
+    a call) and plain version; each block's layout and the chase's steps
+    (max and mean over matrices), the device time a step of the slowest
+    matrix, and the chain floor: its steps at one shared-memory round
+    trip each (SMEM_ROUND_TRIP_NS).  The bound counts the words the steps
+    this input needs touch (low and XOR, W each) and the bytes."""
+    import torch
+    from repro_torch.kernels import gf2_reduce as gf2
+    from repro_torch.kernels import ref
+
+    def kernel():
+        return gf2.gf2_reduce_cuda(blocks, n_rows)
+
+    chains = _gf2_chains(blocks, n_rows, kernel())
+    moved, ops = 0, 0.0
+    for blk, r, c in zip(blocks, n_rows, chains):
         g_, s_, w_ = blk.shape
         moved += 2 * blk.numel() * 4 + g_ * r * 4 + g_ * s_
-        ops += 2.0 * w_ * (g_ * s_ + int(adds.sum()))  # scan + XOR words
+        ops += 2.0 * w_ * (c["se"] + c["adds"])
     bt, by = bound(moved, ops)
+    steps = torch.cat([c["steps"] for c in chains])
+    steps_max = int(steps.max()) if steps.numel() else 0
+    dev_ms = device_ms(kernel)
+    layout = getattr(gf2, "layout", None)  # (older checkouts have none)
+    sms = torch.cuda.get_device_properties(
+        blocks[0].device).multi_processor_count
+    per_block = []
+    for blk, r, c in zip(blocks, n_rows, chains):
+        st = c.pop("steps")
+        c.update(steps_max=int(st.max()) if st.numel() else 0,
+                 steps_mean=float(st.float().mean()) if st.numel() else 0.0,
+                 sweep_iterations_max=(blk.shape[1] + c["adds_max"]
+                                       if st.numel() else 0))
+        if layout is not None:
+            c["layout"] = layout(*c["shape"], r, sms)._asdict()
+        per_block.append(c)
     return {"name": "gf2_reduce",
             "shape": [list(b.shape) for b in blocks], "n_rows": n_rows,
-            "max_abs_err": err,
-            "ms": cuda_ms(lambda: gf2_reduce_cuda(blocks, n_rows)),
+            "max_abs_err": max(c.pop("err") for c in per_block),
+            "ms": cuda_ms(kernel), "device_ms": dev_ms,
+            "host_ms": host_ms_per_call(kernel),
+            "steps_max": steps_max,
+            "steps_mean": float(steps.float().mean()) if steps.numel()
+            else 0.0,
+            "ns_per_step": dev_ms * 1e6 / steps_max if steps_max else None,
+            "chain_floor_ms": steps_max * SMEM_ROUND_TRIP_NS * 1e-6,
+            "blocks": per_block,
             "plain_ms": cuda_ms(lambda: [ref.gf2_reduce_ref(b, r) for b, r
                                          in zip(blocks, n_rows)], reps=1),
             "library_ms": None, "bound_ms": bt, "bound_by": by}

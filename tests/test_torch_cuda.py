@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import domination as dm
+from repro_torch.kernels import gf2_reduce as gf2
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.common_neighbors import common_neighbors_cuda
 from repro_torch.kernels.domination import domination_cuda
@@ -238,6 +239,88 @@ def test_gf2_kernel_block_past_shared_memory(cuda):
     for x, y in zip(gf2_reduce_cuda([b], [2048])[0],
                     ref.gf2_reduce_ref(b, 2048)):
         assert torch.equal(x, y)
+
+
+def _check_gf2(blocks, rows):
+    for got, b, r in zip(gf2_reduce_cuda(blocks, rows), blocks, rows):
+        for x, y in zip(got, ref.gf2_reduce_ref(b, r)):
+            assert torch.equal(x, y)
+
+
+def _gf2_blocks(g, s, r, seed, device):
+    """``_blocks`` for any R: the sign-bit rows only where R reaches one."""
+    if r >= 32:
+        return _blocks(g, s, r, seed, device)
+    rng = np.random.default_rng(seed)
+    bits = np.zeros((g, s, 32), bool)
+    np.put_along_axis(bits, rng.integers(0, r, size=(g, s, 3)), True, axis=-1)
+    words = (bits.astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum(-1)
+    return torch.from_numpy(words.astype(np.uint32).view(np.int32)[..., None]
+                            .copy()).to(device)
+
+
+@pytest.mark.parametrize("w", [1, 2, 4, 5, 8, 16, 32, 33])
+def test_gf2_kernel_every_width(cuda, w):
+    """W picks the layout: a thread per matrix to 4 words, segments of 8,
+    16 and 32 lanes, a warp with the column in shared memory above; rows
+    up to the top word, a third on a sign bit, and G past the SM count so
+    CTAs hold several matrices."""
+    r = 32 * w - 5
+    _check_gf2([_gf2_blocks(300, 64, r, seed=w, device=cuda)], [r])
+
+
+@pytest.mark.parametrize("g,s,w,r", [(5, 64, 2, 40), (1, 7, 1, 20),
+                                     (140, 30, 4, 100), (3, 200, 40, 1270)])
+def test_gf2_kernel_layouts_with_zero_matrices(cuda, g, s, w, r):
+    """All-zero matrices beside random ones, R < S, a last nonzero column
+    that is the matrix's last, and zero columns past a ragged end."""
+    b = _gf2_blocks(g, s, r, seed=g + s, device=cuda)
+    assert b.shape[-1] == w
+    b[0] = 0
+    if g > 1:
+        top = (r - 1) % 32
+        b[1, -1] = 0
+        b[1, -1, (r - 1) // 32] = (1 << top) if top < 31 else -2 ** 31
+    if g > 2:
+        b[2, s // 2:] = 0
+    _check_gf2([b], [r])
+
+
+def test_gf2_kernel_rows_under_a_word_and_no_graphs(cuda):
+    _check_gf2([_gf2_blocks(9, 40, 20, seed=8, device=cuda)], [20])
+    outs = gf2_reduce_cuda([torch.zeros((0, 12, 2), dtype=torch.int32,
+                                        device=cuda)], [40])
+    assert [tuple(x.shape) for x in outs[0]] == [(0, 12, 2), (0, 40), (0, 12)]
+
+
+def test_gf2_kernel_one_launch_of_four_layouts(cuda):
+    """Thread, segment, warp and global blocks in one launch."""
+    blocks = [_blocks(6, 90, 120, seed=11, device=cuda),
+              _blocks(6, 60, 500, seed=12, device=cuda),
+              _blocks(6, 50, 1200, seed=13, device=cuda),
+              _blocks(6, 1024, 2048, seed=14, device=cuda)]
+    rows = [120, 500, 1200, 2048]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    kinds = [gf2.layout(6, b.shape[1], b.shape[2], r, sms).kind
+             for b, r in zip(blocks, rows)]
+    assert kinds == ["thread", "segment", "warp", "global"]
+    _check_gf2(blocks, rows)
+
+
+def test_gf2_smem_matches_layout(cuda):
+    """The source's shared-memory size agrees with the selector's."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    fn = _build.function("gf2_reduce", "gf2_reduce_smem_bytes",
+                         [ctypes.c_int] * 5, restype=ctypes.c_longlong)
+    for g, s, w, r in ((689, 128, 4, 120), (253, 128, 16, 512),
+                       (35, 256, 8, 256), (4, 200, 40, 1280),
+                       (8, 4096, 128, 4096), (3, 7, 1, 0)):
+        lay = gf2.layout(g, s, w, r, 132)
+        assert fn(gf2.KINDS.index(lay.kind), lay.matrices_per_cta, s, w,
+                  r) == lay.smem_bytes
 
 
 def test_wrappers_launch_and_count(cuda):
