@@ -44,17 +44,19 @@ where the computation is exact, within a stated tolerance where float sums
 run in another order.  The kernel checks also run ``kcore_peel`` at every
 cluster size its selector returns on this card, ``domination`` on each
 side of the N = 128 that divides its two work mappings, both epilogues of
-``common_neighbors`` there too, and hold both ``pairwise_l1`` layouts
-against each other bitwise.  Then one n64
+``common_neighbors`` there too, ``sinkhorn_pair_sum`` in every branch of
+its layout (and three launches interleaved with others, bitwise) and
+``hamming_scan`` on both its paths and an unaligned corpus, and hold both
+``pairwise_l1`` layouts against each other bitwise.  Then one n64
 execution, one n64 clustering call, one index run (and the sharded LSH
 query alone), one full-tensor Sinkhorn call and DD-rung exact_w calls in
 both layouts are profiled for device time by kernel, and each kernel is
-timed at the largest input each phase gave it (``kcore_peel``,
-``domination``, ``pairwise_l1`` and the auction kernels also on the
-device, behind a sleep that keeps the host out of the time, with the
-cluster size, mapping or layout the launch took; ``common_neighbors`` in
-both epilogues; the auction kernels also
-per round of their slowest problem).  Each phase prints one JSON line; any failure exits
+timed at the largest input each phase gave it (every kernel also on the
+device, behind a sleep that keeps the host out of the time, and all but
+the auction kernels for the wrapper's host time a call, with the cluster
+size, mapping or layout the launch took; ``common_neighbors`` in both epilogues; the auction kernels
+also per round of their slowest problem; ``sinkhorn_pair_sum`` and
+``hamming_scan`` with ptxas's registers and spills).  Each phase prints one JSON line; any failure exits
 non-zero.  The last two lines are the ``kernels`` summary (launches on the
 main path, error against the plain version, times and bounds) after the
 card's name and power limit, and the ``ok`` line.
@@ -313,6 +315,22 @@ def _demangle(names):
     return out if len(out) == len(names) else list(names)
 
 
+def ptxas(source: str, prefix: str = "") -> dict:
+    """ptxas's registers, static shared memory and spill bytes for each
+    kernel of the built library ``source`` whose C++ name starts with
+    ``prefix``, by that name."""
+    from repro_torch.kernels import _build
+
+    report = _build.ptxas_report(source)
+    out = {}
+    for full, info in zip(_demangle(list(report)), report.values()):
+        full = full.replace("(anonymous namespace)::", "")
+        name = full.removeprefix("void ").split("(")[0]
+        if name.startswith(prefix):
+            out[name] = info
+    return out
+
+
 def phase_build() -> dict:
     """Build every source (one nvcc each, in parallel) and report ptxas's
     registers, static shared memory and spill bytes for every kernel."""
@@ -321,14 +339,10 @@ def phase_build() -> dict:
     t0 = time.perf_counter()
     per_source = _build.build()
     seconds = time.perf_counter() - t0
-    ptxas = {}
-    for name in _build.SOURCES:
-        report = _build.ptxas_report(name)
-        for full, info in zip(_demangle(list(report)), report.values()):
-            full = full.replace("(anonymous namespace)::", "")
-            ptxas[full.removeprefix("void ").split("(")[0]] = info
     return {"phase": "build", "seconds": seconds,
-            "per_source_seconds": per_source, "ptxas": ptxas}
+            "per_source_seconds": per_source,
+            "ptxas": {k: v for name in _build.SOURCES
+                      for k, v in ptxas(name).items()}}
 
 
 def _random_graphs(b, n, p, seed, device):
@@ -715,6 +729,38 @@ def phase_kernel_checks(dev) -> dict:
                       ref.sinkhorn_pair_sum_ref(*args))
             check(v0 or float(got[0]) == 0.0,
                   "sinkhorn_pair_sum: an item with no valid pair is not 0")
+    # the pair sum's layout branches, and three launches on one input
+    # interleaved with launches on another: equal bits, so every launch
+    # leaves its tickets at 0
+    from repro_torch.kernels.sinkhorn_lse import layout as pair_layout
+    from repro_torch.metrics.testing import PAIR_SUM_CASES, pair_sum_operands
+
+    keys = ("xp", "yp", "f", "g", "log_a", "log_b", "e_t")
+    for case in PAIR_SUM_CASES:
+        t = pair_sum_operands(np.random.default_rng(sum(case[:3])), *case,
+                              dev)
+        lay = pair_layout(*case[:3], sms)
+        for mode in ("plan", "cost"):
+            args = (*(t[k] for k in keys), mode)
+            got = sinkhorn_pair_sum_cuda(*args)
+            sk_record("sinkhorn_pair_sum",
+                      [*case, mode, f"{lay.ctas_per_item} CTAs an item"],
+                      got, sinkhorn_pair_sum_cuda(*args),
+                      ref.sinkhorn_pair_sum_ref(*args))
+            check(case[3] != "last" or float(got[0]) == 0.0,
+                  "sinkhorn_pair_sum: an item with no weight is not 0")
+    t = sinkhorn_operands(np.random.default_rng(3), 2, 3200, 3200, 40, dev)
+    one = (*(t[k] for k in keys), "plan")
+    t = pair_sum_operands(np.random.default_rng(4), 3, 300, 700, "last", dev)
+    other = [t[k] for k in keys]
+    first = sinkhorn_pair_sum_cuda(*one)
+    again = []
+    for mode in ("plan", "cost"):
+        sinkhorn_pair_sum_cuda(*other, mode)
+        again.append(sinkhorn_pair_sum_cuda(*one))
+    check(all(torch.equal(first, a) for a in again),
+          "sinkhorn_pair_sum: launches interleaved with others differ")
+    record("sinkhorn_pair_sum", [2, 3200, 3200, "interleaved x3"], 0)
 
     # the auction kernels over the shared case list: everything bitwise but
     # the totals
@@ -743,18 +789,27 @@ def phase_kernel_checks(dev) -> dict:
     # all-ones and multi-probe masks; a second launch gives the same bits
     from repro_torch.kernels.hamming import (
         as_int32_words, hamming_scan_cuda, pack_codes_u32)
-    from repro_torch.metrics.testing import HAMMING_CASES, hamming_operands
+    from repro_torch.kernels.hamming import layout as hamming_layout
+    from repro_torch.metrics.testing import (
+        HAMMING_CASES, HAMMING_KERNEL_CASES, hamming_operands)
 
-    for case in HAMMING_CASES:
+    for case in HAMMING_CASES + HAMMING_KERNEL_CASES:
         cq, cd, mq = (as_int32_words(pack_codes_u32(a)).to(dev)
                       for a in hamming_operands(
                           np.random.default_rng(sum(case[:3])), *case))
         check(bool((cd < 0).any()), f"hamming_scan {case}: no bit-31 word")
         got = hamming_scan_cuda(cq, mq, cd)
-        err = max_abs_err([got], [ref.hamming_scan_ref(cq, mq, cd)])
+        want = ref.hamming_scan_ref(cq, mq, cd)
         check(torch.equal(got, hamming_scan_cuda(cq, mq, cd)),
               f"hamming_scan {case}: two launches differ")
-        record("hamming_scan", list(case), err)
+        path = hamming_layout(cq.shape[0], cd.shape[0], cq.shape[1],
+                              sms).path
+        record("hamming_scan", [*case, path], max_abs_err([got], [want]))
+        # the corpus one word into its storage: no 16-byte loads
+        shifted = torch.cat([cd.new_zeros(1), cd.flatten()])[1:].view(
+            cd.shape)
+        record("hamming_scan", [*case, path, "unaligned corpus"],
+               max_abs_err([hamming_scan_cuda(cq, mq, shifted)], [want]))
     return {"phase": "kernels_check", "cases": len(cases),
             "mismatches": 0, "l1_tolerance": L1_TOLERANCE,
             "sinkhorn_tolerance": SK_TOLERANCE,
@@ -1959,10 +2014,9 @@ def _profile(name, fn, reps: int = 1) -> dict:
               "gf2_reduce_kernel",
               "common_neighbors_gram_kernel",
               "pairwise_l1_kernel", "pairwise_l1_small_kernel",
-              "sinkhorn_lse_kernel",
-              "sinkhorn_pair_sum_kernel", "sum_partials_kernel",
+              "sinkhorn_lse_kernel", "sinkhorn_pair_sum_kernel",
               "auction_lap_kernel", "auction_collapsed_kernel",
-              "hamming_scan_kernel")
+              "hamming_scan_regs_kernel", "hamming_scan_chunked_kernel")
     ported_ms = sum(r[0] for r in rows if any(p in r[1] for p in ported))
     check(busy_ms > 0, f"{name}: no device time recorded")
     return {"phase": name, "reps": reps, "wall_ms": wall_ms,
@@ -2315,13 +2369,17 @@ def _time_pairwise_l1(x, y) -> dict:
 
 
 def _time_hamming(codes_q, mask_q, codes_db) -> dict:
-    """Kernel, plain version, and a byte-table lookup in one expression as
-    the library yardstick (torch has no popcount).  The bound is the
-    largest of the bytes (each word in once, the int32 output out once),
-    3 lane instructions (XOR, AND, add) and one popcount per (i, j, w)."""
+    """Kernel (between events, on the device, and the wrapper's host time
+    a call), plain version, and a byte-table lookup in one expression as
+    the library yardstick (torch has no popcount); the launch's layout and
+    ptxas's report.  The bound is the largest of the bytes (each word in
+    once, the int32 output out once), 3 lane instructions (XOR, AND, add)
+    and one popcount per (i, j, w).  Beside it, ``fill_ms``: the device
+    time of PyTorch's fill of an int32 tensor of the output's shape, the
+    write rate the card reaches on these bytes with nothing to compute."""
     import torch
+    from repro_torch.kernels import hamming as hm
     from repro_torch.kernels import ref
-    from repro_torch.kernels.hamming import hamming_scan_cuda
 
     (q, w), n = codes_q.shape, codes_db.shape[0]
     table = torch.tensor([bin(i).count("1") for i in range(256)],
@@ -2331,21 +2389,32 @@ def _time_hamming(codes_q, mask_q, codes_db) -> dict:
         x = (codes_q[:, None, :] ^ codes_db[None]) & mask_q[:, None, :]
         return table[x.view(torch.uint8).int()].sum(-1, dtype=torch.int32)
 
+    def kernel():
+        return hm.hamming_scan_cuda(codes_q, mask_q, codes_db)
+
     want = ref.hamming_scan_ref(codes_q, mask_q, codes_db)
-    got = hamming_scan_cuda(codes_q, mask_q, codes_db)
+    got = kernel()
     check(torch.equal(library(), want), "hamming_scan: the byte-table "
                                         "yardstick disagrees")
+    filled = torch.empty_like(want)
     bt, by = bound(4.0 * (2 * q * w + n * w + q * n), 3.0 * q * n * w,
                    float(q * n * w))
+    layout = getattr(hm, "layout", None)  # (older checkouts have none)
+    sms = torch.cuda.get_device_properties(
+        codes_q.device).multi_processor_count
     return {"name": "hamming_scan", "shape": [q, n, w],
-            "max_abs_err": max_abs_err([got], [want]),
-            "ms": cuda_ms(lambda: hamming_scan_cuda(codes_q, mask_q,
-                                                    codes_db)),
+            "layout": layout(q, n, w, sms)._asdict() if layout else None,
+            "max_abs_err": max(max_abs_err([got], [want]),
+                               max_abs_err([kernel()], [got])),
+            "ms": cuda_ms(kernel), "device_ms": device_ms(kernel),
+            "host_ms": host_ms_per_call(kernel),
             "plain_ms": cuda_ms(lambda: ref.hamming_scan_ref(
                 codes_q, mask_q, codes_db), reps=3),
             "library_ms": cuda_ms(library, reps=3),
             "library": "byte-table lookup (torch has no popcount)",
-            "bound_ms": bt, "bound_by": by}
+            "bound_ms": bt, "bound_by": by,
+            "fill_ms": device_ms(lambda: filled.fill_(0)),
+            "ptxas": ptxas("hamming", "hamming_scan")}
 
 
 def phase_hamming_large(dev, q=256, n=262144, nbytes=16) -> dict:
@@ -2366,7 +2435,8 @@ def phase_hamming_large(dev, q=256, n=262144, nbytes=16) -> dict:
 
 def _time_sinkhorn_lse(xp, yp, dual, logw, e_t, packed=None) -> dict:
     """Kernel (from the main path's pack of the weighted columns, made once
-    per side and call, which ``pack_ms`` times apart), plain version, and
+    per side and call, which ``pack_ms`` times apart; between events, on
+    the device, and the wrapper's host time a call), plain version, and
     torch.logsumexp over the materialized exponents (cost build included).
     The bound counts SK_LSE_WORK for every row and column of nonzero weight
     (the others add nothing), and the bytes the function needs: every row's
@@ -2389,15 +2459,21 @@ def _time_sinkhorn_lse(xp, yp, dual, logw, e_t, packed=None) -> dict:
         z = logw[:, None, :] + (dual[:, None, :] - c) / e_t[:, :, None]
         return torch.logsumexp(z, -1)
 
+    def kernel():
+        return sinkhorn_lse_cuda(*args, packed)
+
     cols = int((logw != float("-inf")).sum())
     visited = m * cols
     lane, mufu = SK_LSE_WORK
     bt, by = bound(4.0 * (4 * b * m + b * n + 4 * cols + b),
                    lane * visited, mufu * visited)
     return {"name": "sinkhorn_lse", "shape": [b, m, n],
+            # one thread a row, 128 a CTA (csrc/sinkhorn_lse.cu)
+            "layout": {"grid": [b, -(-m // 128)], "threads": 128},
             "visited_pairs": visited, "max_abs_err": err,
             "tolerance": SK_TOLERANCE, "within_tolerance": ok,
-            "ms": cuda_ms(lambda: sinkhorn_lse_cuda(*args, packed)),
+            "ms": cuda_ms(kernel), "device_ms": device_ms(kernel),
+            "host_ms": host_ms_per_call(kernel),
             "pack_ms": cuda_ms(lambda: pack_columns(yp, logw)),
             "plain_ms": cuda_ms(lambda: ref.sinkhorn_lse_ref(*args), reps=3),
             "library_ms": cuda_ms(library, reps=3), "bound_ms": bt,
@@ -2405,19 +2481,26 @@ def _time_sinkhorn_lse(xp, yp, dual, logw, e_t, packed=None) -> dict:
 
 
 def _time_sinkhorn_pair_sum(xp, yp, f, g, log_a, log_b, e_t, mode) -> dict:
-    """Kernel (both launches) and plain version; no single PyTorch call
-    computes the masked pair sum.  The bound counts SK_PAIR_WORK[mode] for
-    every pair of nonzero weight, and the bytes the function needs: every
-    log weight, and the planes (and, for "plan", the potential) of the
-    slots of nonzero weight."""
+    """Kernel (between events, on the device, and the wrapper's host time
+    a call; equal bits on a repeat launch) and plain version, the launch's
+    layout and ptxas's report; no single PyTorch call computes the masked
+    pair sum.  The bound counts SK_PAIR_WORK[mode] for every pair of
+    nonzero weight, and the bytes the function needs: every log weight,
+    and the planes (and, for "plan", the potential) of the slots of
+    nonzero weight."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.sinkhorn_lse import sinkhorn_pair_sum_cuda
+    from repro_torch.kernels import sinkhorn_lse as sk
 
     (b, _, m), n = xp.shape, yp.shape[-1]
     args = (xp, yp, f, g, log_a, log_b, e_t, mode)
-    err, ok = sinkhorn_error(sinkhorn_pair_sum_cuda(*args),
-                             ref.sinkhorn_pair_sum_ref(*args))
+
+    def kernel():
+        return sk.sinkhorn_pair_sum_cuda(*args)
+
+    got = kernel()
+    err, ok = sinkhorn_error(got, ref.sinkhorn_pair_sum_ref(*args))
+    repeat = torch.equal(got, kernel())
     rows, cols = torch.isfinite(log_a).sum(-1), torch.isfinite(log_b).sum(-1)
     visited = int((rows * cols).sum())
     slot_bytes = 16 if mode == "plan" else 12
@@ -2425,13 +2508,19 @@ def _time_sinkhorn_pair_sum(xp, yp, f, g, log_a, log_b, e_t, mode) -> dict:
     bt, by = bound(4.0 * b * (m + n + 2)
                    + slot_bytes * int(rows.sum() + cols.sum()),
                    lane * visited, mufu * visited)
+    layout = getattr(sk, "layout", None)  # (older checkouts have none)
+    sms = torch.cuda.get_device_properties(xp.device).multi_processor_count
     return {"name": "sinkhorn_pair_sum", "shape": [b, m, n], "mode": mode,
+            "layout": layout(b, m, n, sms)._asdict() if layout else None,
             "visited_pairs": visited, "max_abs_err": err,
-            "tolerance": SK_TOLERANCE, "within_tolerance": ok,
-            "ms": cuda_ms(lambda: sinkhorn_pair_sum_cuda(*args)),
+            "tolerance": SK_TOLERANCE + "; a repeat launch bitwise",
+            "within_tolerance": ok and repeat,
+            "ms": cuda_ms(kernel), "device_ms": device_ms(kernel),
+            "host_ms": host_ms_per_call(kernel),
             "plain_ms": cuda_ms(lambda: ref.sinkhorn_pair_sum_ref(*args),
                                 reps=3),
-            "library_ms": None, "bound_ms": bt, "bound_by": by}
+            "library_ms": None, "bound_ms": bt, "bound_by": by,
+            "ptxas": ptxas("sinkhorn_lse", "sinkhorn_pair_sum")}
 
 
 def _auction_row(name, cost, got, want, scans, io_bytes, kernel, plain):

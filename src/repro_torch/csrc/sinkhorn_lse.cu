@@ -44,43 +44,43 @@
 //   division, so each z is bitwise the z of the plain PyTorch version (one
 //   ulp of z at the last eps stage is ~1e-4 relative after exp).  No
 //   atomics: equal inputs give equal bits.
-// sinkhorn_pair_sum: a CTA of kRows rows walks the y side in tiles of kCols
-//   columns, staging each tile's columns of nonzero weight, packed in column
-//   order (warp ballots and a prefix over the CTA's four warps).  It keeps a
-//   per-thread sum over its row in column order, reduces the CTA's rows in a
-//   fixed tree into partial[b, cta], and a second kernel sums each batch
-//   item's partials in order: no float atomics, so equal inputs give equal
-//   bits from run to run, which the Sinkhorn divergence needs for a
-//   self-distance of exactly 0.
-// The grid is (B, ceil(M / kRows)), so a wide batch fills the SMs.
+// sinkhorn_pair_sum: one launch, in the work mapping that
+//   kernels/sinkhorn_lse.py::layout derives from B, M, N and the SM count:
+//   `per_item` CTAs an item, each owning a share of `share` consecutive rows
+//   (one CTA an item when the batch alone fills the card, several when it
+//   is small), `kThreads` threads a CTA (64 to 512).  A CTA compacts its
+//   share's rows of finite log weight, in row order, into shared memory
+//   (planes, f, log_a), and the item's columns of finite log weight the same
+//   way (planes, g, log_b).  A compaction step scans kSlots * kThreads slots,
+//   coalesced: one ballot per slot a thread, one count per (slot, warp) and
+//   one exclusive scan by a warp, two barriers.  Where the share and the
+//   columns each fit one step and one stage of 2 * kThreads (the main path's
+//   inputs), both sides go through one step side by side; otherwise a stage
+//   of rows at a time, and for each the columns a stage at a time, a stage
+//   that would overflow ending at a slot that the next resumes from.  A CTA
+//   whose share holds no row of finite weight stops after its compaction.
+//   The nr x nc pairs of a row stage and a column stage are spread over all
+//   threads: thread t takes pairs p = t, t + kThreads, ... (row p / nc,
+//   column p % nc) and adds their terms to its own sum in that order,
+//   across the stages in order.  Each term is
+//   formed as in the plain version, with the same cost() and the same
+//   __fsub_rn/__fdiv_rn/__fadd_rn/expf chain.  A fixed halving tree sums the
+//   CTA's threads (s[t] += s[t + h], h = kThreads / 2 ... 1); with one CTA
+//   an item it is the item's sum.  With several, each CTA stores its sum,
+//   and the last CTA of the item to finish (the one that draws the last
+//   ticket of a per-item counter, which it resets to 0 for the next launch)
+//   adds the item's partials in CTA order.  No float atomics, so equal
+//   inputs give equal bits from run to run, which the Sinkhorn divergence
+//   needs for a self-distance of exactly 0.
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int kRows = 128;  // threads per CTA, one output row each
-constexpr int kCols = 128;  // pair sum: y columns staged per tile
+constexpr int kRows = 128;  // LSE: threads per CTA, one output row each
 constexpr int kStage = 512;  // LSE: packed columns staged at once
 constexpr int kChunk = 16;   // LSE: z values a thread keeps in registers
-constexpr int kWarps = kRows / 32;
-static_assert(kRows == kCols, "each thread stages one column of a tile");
-
-// Where thread t's column goes among the tile's kept columns (those with
-// keep set, in column order), and how many there are.  Every thread of the
-// CTA must call it; it ends with the CTA synchronised.
-__device__ __forceinline__ int pack_slot(bool keep, int* s_warp, int* kept) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned ballot = __ballot_sync(0xffffffffu, keep);
-  if (lane == 0) s_warp[warp] = __popc(ballot);
-  __syncthreads();
-  int base = 0, total = 0;
-  for (int k = 0; k < kWarps; ++k) {
-    base += k < warp ? s_warp[k] : 0;
-    total += s_warp[k];
-  }
-  *kept = total;
-  return base + __popc(ballot & ((1u << lane) - 1u));
-}
+constexpr int kSlots = 8;    // pair sum: slots a thread scans per step
 
 __device__ __forceinline__ float cost(float xb, float xd, bool xdiag,
                                       float yb, float yd, float yf) {
@@ -164,8 +164,169 @@ sinkhorn_lse_kernel(const float* __restrict__ xp, const float* __restrict__ yq,
         isfinite(m_run) ? __fadd_rn(m_run, logf(s_run)) : -INFINITY;
 }
 
-template <bool kPlan>
-__global__ void __launch_bounds__(kRows)
+// A compaction's scratch: the kept slots per (slot k, warp), turned into
+// their exclusive prefix in place, the step's total, and where an
+// overflowing stage resumes.
+template <int kThreads>
+struct ScanScratch {
+  static constexpr int kEntries = kSlots * (kThreads / 32);
+  int count[kEntries];
+  int total;
+  int resume;
+};
+
+// A compaction step's loads: slot at + k * kThreads + t for thread t, -inf
+// from hi on.
+template <int kThreads>
+__device__ __forceinline__ void load_slots(const float* __restrict__ logw,
+                                           int at, int hi,
+                                           float (&w)[kSlots]) {
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    const int j = at + k * kThreads + threadIdx.x;
+    w[k] = j < hi ? logw[j] : -INFINITY;
+  }
+}
+
+// The warp's ballots of its finite slots, and lane 0's counts of them.
+template <int kThreads>
+__device__ __forceinline__ void count_slots(const float (&w)[kSlots],
+                                            unsigned (&kept)[kSlots],
+                                            ScanScratch<kThreads>& sc) {
+  constexpr int kWarps = kThreads / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k)
+    kept[k] = __ballot_sync(0xffffffffu, isfinite(w[k]));
+  __syncwarp();  // this warp's reads of the previous step's prefix are done
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k)
+      sc.count[k * kWarps + warp] = __popc(kept[k]);
+  }
+}
+
+// One warp turns the counts into their exclusive prefix, in (slot, warp)
+// order, which is slot order, and stores the total.
+template <int kThreads>
+__device__ __forceinline__ void scan_counts(ScanScratch<kThreads>& sc) {
+  constexpr int kEntries = ScanScratch<kThreads>::kEntries;
+  constexpr int kPerLane = (kEntries + 31) / 32;
+  const int lane = threadIdx.x & 31;
+  int v[kPerLane], run = 0;
+#pragma unroll
+  for (int e = 0; e < kPerLane; ++e) {
+    const int at = lane * kPerLane + e;
+    v[e] = at < kEntries ? sc.count[at] : 0;
+    run += v[e];
+  }
+  int incl = run;
+#pragma unroll
+  for (int h = 1; h < 32; h <<= 1) {
+    const int o = __shfl_up_sync(0xffffffffu, incl, h);
+    if (lane >= h) incl += o;
+  }
+  int base = incl - run;
+#pragma unroll
+  for (int e = 0; e < kPerLane; ++e) {
+    const int at = lane * kPerLane + e;
+    if (at < kEntries) sc.count[at] = base;
+    base += v[e];
+  }
+  if (lane == 31) sc.total = incl;
+}
+
+// Stages the step's finite slots at position filled + their prefix, those
+// below cap; the slot at position cap, if there is one, is where the next
+// stage resumes.
+template <int kThreads, typename Put>
+__device__ __forceinline__ void put_slots(int at, const float (&w)[kSlots],
+                                          const unsigned (&kept)[kSlots],
+                                          int filled, int cap,
+                                          ScanScratch<kThreads>& sc,
+                                          Put put) {
+  constexpr int kWarps = kThreads / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    if (kept[k] >> lane & 1u) {
+      const int q = filled + sc.count[k * kWarps + warp] +
+                    __popc(kept[k] & below);
+      const int j = at + k * kThreads + threadIdx.x;
+      if (q < cap)
+        put(q, j, w[k]);
+      else if (q == cap)
+        sc.resume = j;
+    }
+  }
+}
+
+// Stages, in slot order, the slots of [*cursor, hi) whose log weight is
+// finite, up to `cap` of them: put(q, j, w) stores slot j of log weight w at
+// compacted position q.  Returns how many it staged and leaves *cursor at
+// the first slot not staged.  Every thread of the CTA calls it with the same
+// arguments.  A thread's put() writes are not yet visible to the others
+// when it returns: the caller synchronises before reading the stage.
+template <int kThreads, typename Put>
+__device__ __forceinline__ int compact(const float* __restrict__ logw,
+                                       int* cursor, int hi, int cap,
+                                       ScanScratch<kThreads>& sc, Put put) {
+  int at = *cursor, filled = 0;
+  while (at < hi && filled < cap) {
+    float w[kSlots];
+    unsigned kept[kSlots];
+    load_slots<kThreads>(logw, at, hi, w);
+    count_slots<kThreads>(w, kept, sc);
+    __syncthreads();
+    if (threadIdx.x < 32) scan_counts<kThreads>(sc);
+    __syncthreads();
+    const int total = sc.total;
+    put_slots<kThreads>(at, w, kept, filled, cap, sc, put);
+    if (filled + total > cap) {  // the stage is full inside this step
+      __syncthreads();
+      at = sc.resume;
+      filled = cap;
+      break;
+    }
+    filled += total;
+    at += kSlots * kThreads;
+  }
+  *cursor = min(at, hi);
+  return filled;
+}
+
+// Adds this thread's pairs of the staged nr rows x nc columns to acc: pairs
+// p = t, t + kThreads, ... (row p / nc, column p % nc), in that order.
+template <bool kPlan, int kThreads>
+__device__ __forceinline__ float add_pairs(
+    float acc, int nr, int nc, float e, const float4* s_row,
+    const float* s_la, const float4* s_col, const float* s_lb) {
+  int i = threadIdx.x / nc, j = threadIdx.x - i * nc;
+  const int di = kThreads / nc, dj = kThreads - di * nc;
+  while (i < nr) {
+    const float4 r = s_row[i], c4 = s_col[j];
+    const float c = cost(r.x, r.y, r.z > 0.f, c4.x, c4.y, c4.z);
+    if (kPlan) {
+      const float z = __fadd_rn(
+          __fadd_rn(s_la[i], s_lb[j]),
+          __fdiv_rn(__fsub_rn(__fadd_rn(r.w, c4.w), c), e));
+      acc = __fadd_rn(acc, __fmul_rn(expf(z), c));
+    } else {
+      acc = __fadd_rn(acc, c);
+    }
+    i += di;
+    j += dj;
+    if (j >= nc) {
+      j -= nc;
+      ++i;
+    }
+  }
+  return acc;
+}
+
+template <bool kPlan, int kThreads>
+__global__ void __launch_bounds__(kThreads)
 sinkhorn_pair_sum_kernel(const float* __restrict__ xp,
                          const float* __restrict__ yp,
                          const float* __restrict__ f,
@@ -173,75 +334,160 @@ sinkhorn_pair_sum_kernel(const float* __restrict__ xp,
                          const float* __restrict__ log_a,
                          const float* __restrict__ log_b,
                          const float* __restrict__ e_t,
-                         float* __restrict__ partial, int m, int n) {
-  __shared__ float s_yb[kCols], s_yd[kCols], s_yf[kCols], s_g[kCols],
-      s_lb[kCols];
-  __shared__ float s_sum[kRows];
-  __shared__ int s_warp[kWarps];
-  const int b = blockIdx.x;
-  const int i = blockIdx.y * kRows + threadIdx.x;
+                         float* __restrict__ partial,
+                         unsigned* __restrict__ ticket,
+                         float* __restrict__ out, int m, int n, int per_item,
+                         int share) {
+  constexpr int kCap = 2 * kThreads;  // rows or columns a stage holds
+  constexpr int kStep = kSlots * kThreads;  // slots a compaction step scans
+  // a staged row: (birth, death, diagonal flag, f) and log_a; a staged
+  // column: (birth, death, diagonal flag, g) and log_b
+  __shared__ float4 s_row[kCap], s_col[kCap];
+  __shared__ float s_la[kCap], s_lb[kCap];
+  __shared__ float s_sum[kThreads];
+  __shared__ ScanScratch<kThreads> sc_row, sc_col;
+  const int b = blockIdx.x / per_item;
+  const int part = blockIdx.x - b * per_item;
+  const int r_lo = part * share;
+  const int r_hi = min(m, r_lo + share);
   const float* x = xp + (size_t)b * 3 * m;
   const float* y = yp + (size_t)b * 3 * n;
-  float xb = 0.f, xd = 0.f, fi = 0.f, la = -INFINITY;
-  bool xdiag = false;
-  if (i < m) {
-    xb = x[i];
-    xd = x[m + i];
-    xdiag = x[2 * m + i] > 0.f;
-    la = log_a[(size_t)b * m + i];
-    if (kPlan) fi = f[(size_t)b * m + i];
-  }
-  const bool live = isfinite(la);  // rows past M and invalid rows add nothing
+  const float* fb = f + (size_t)b * m;
+  const float* gb = g + (size_t)b * n;
+  const float* la = log_a + (size_t)b * m;
+  const float* lb = log_b + (size_t)b * n;
   const float e = kPlan ? e_t[b] : 1.f;
+  auto put_row = [=](int q, int i, float w) {
+    s_row[q] = make_float4(x[i], x[m + i], x[2 * m + i], kPlan ? fb[i] : 0.f);
+    s_la[q] = w;
+  };
+  auto put_col = [=](int q, int j, float w) {
+    s_col[q] = make_float4(y[j], y[n + j], y[2 * n + j], kPlan ? gb[j] : 0.f);
+    s_lb[q] = w;
+  };
   float acc = 0.f;
-  for (int j0 = 0; j0 < n; j0 += kCols) {
-    const int j = j0 + threadIdx.x;
-    const float lb_j = j < n ? log_b[(size_t)b * n + j] : -INFINITY;
+  bool any = false;  // the share holds a row of finite weight
+  bool staged = false;
+  if (r_hi - r_lo <= kStep && n <= kStep) {
+    // the rows and the columns each in one step, side by side: one round
+    // of loads and two barriers, then both stages if both fit
+    float wr[kSlots], wc[kSlots];
+    unsigned kr[kSlots], kc[kSlots];
+    load_slots<kThreads>(la, r_lo, r_hi, wr);
+    load_slots<kThreads>(lb, 0, n, wc);
+    count_slots<kThreads>(wr, kr, sc_row);
+    count_slots<kThreads>(wc, kc, sc_col);
     __syncthreads();
-    int cols;
-    const int slot = pack_slot(isfinite(lb_j), s_warp, &cols);
-    if (isfinite(lb_j)) {
-      s_yb[slot] = y[j];
-      s_yd[slot] = y[n + j];
-      s_yf[slot] = y[2 * n + j];
-      s_lb[slot] = lb_j;
-      if (kPlan) s_g[slot] = g[(size_t)b * n + j];
-    }
+    if (threadIdx.x < 32)
+      scan_counts<kThreads>(sc_row);
+    else if (threadIdx.x < 64)
+      scan_counts<kThreads>(sc_col);
     __syncthreads();
-    if (!live) continue;
-    for (int t = 0; t < cols; ++t) {
-      const float lb = s_lb[t];
-      const float c = cost(xb, xd, xdiag, s_yb[t], s_yd[t], s_yf[t]);
-      if (kPlan) {
-        const float z = __fadd_rn(
-            __fadd_rn(la, lb),
-            __fdiv_rn(__fsub_rn(__fadd_rn(fi, s_g[t]), c), e));
-        acc = __fadd_rn(acc, __fmul_rn(expf(z), c));
-      } else {
-        acc = __fadd_rn(acc, c);
+    const int nr = sc_row.total, nc = sc_col.total;
+    if (nr <= kCap && nc <= kCap) {
+      staged = true;
+      any = nr > 0;
+      if (any && nc > 0) {
+        put_slots<kThreads>(r_lo, wr, kr, 0, kCap, sc_row, put_row);
+        put_slots<kThreads>(0, wc, kc, 0, kCap, sc_col, put_col);
+        __syncthreads();  // both stages visible
+        acc = add_pairs<kPlan, kThreads>(acc, nr, nc, e, s_row, s_la, s_col,
+                                         s_lb);
       }
     }
   }
-  // fixed-order tree over the CTA's rows
-  s_sum[threadIdx.x] = acc;
-  __syncthreads();
-  for (int h = kRows / 2; h > 0; h >>= 1) {
-    if (threadIdx.x < h)
-      s_sum[threadIdx.x] = __fadd_rn(s_sum[threadIdx.x],
-                                     s_sum[threadIdx.x + h]);
-    __syncthreads();
+  // otherwise stage by stage: a stage of rows, then the columns a stage at
+  // a time
+  for (int r_at = r_lo; !staged && r_at < r_hi;) {
+    const int nr = compact<kThreads>(la, &r_at, r_hi, kCap, sc_row, put_row);
+    if (nr == 0) break;
+    any = true;
+    for (int c_at = 0; c_at < n;) {
+      const int nc = compact<kThreads>(lb, &c_at, n, kCap, sc_col, put_col);
+      if (nc == 0) break;
+      __syncthreads();  // both stages visible
+      acc = add_pairs<kPlan, kThreads>(acc, nr, nc, e, s_row, s_la, s_col,
+                                       s_lb);
+    }
   }
-  if (threadIdx.x == 0) partial[(size_t)b * gridDim.y + blockIdx.y] = s_sum[0];
+  float total = 0.f;  // a share with no weighted row sums to exactly 0
+  if (any) {
+    // fixed halving tree over the CTA's threads
+    s_sum[threadIdx.x] = acc;
+    __syncthreads();
+#pragma unroll
+    for (int h = kThreads / 2; h >= 32; h >>= 1) {
+      if (threadIdx.x < h)
+        s_sum[threadIdx.x] = __fadd_rn(s_sum[threadIdx.x],
+                                       s_sum[threadIdx.x + h]);
+      __syncthreads();
+    }
+    if (threadIdx.x < 32) {
+      float v = s_sum[threadIdx.x];
+#pragma unroll
+      for (int h = 16; h > 0; h >>= 1)
+        v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, h));
+      total = v;
+    }
+  }
+  if (threadIdx.x != 0) return;
+  if (per_item == 1) {
+    out[b] = total;
+    return;
+  }
+  // several CTAs an item: the last to finish sums the partials in order
+  partial[blockIdx.x] = total;
+  __threadfence();
+  if (atomicAdd(&ticket[b], 1u) != (unsigned)per_item - 1u) return;
+  __threadfence();
+  const float* p = partial + (size_t)b * per_item;
+  float s = 0.f;
+  for (int k = 0; k < per_item; ++k) s = __fadd_rn(s, __ldcg(p + k));
+  out[b] = s;
+  ticket[b] = 0u;  // ready for the next launch on this stream
 }
 
-__global__ void sum_partials_kernel(const float* __restrict__ partial,
-                                    float* __restrict__ out, int b, int parts) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= b) return;
-  float s = 0.f;
-  for (int p = 0; p < parts; ++p)
-    s = __fadd_rn(s, partial[(size_t)k * parts + p]);
-  out[k] = s;
+template <bool kPlan, int kThreads>
+int launch_pair_sum(const void* xp, const void* yp, const void* f,
+                    const void* g, const void* log_a, const void* log_b,
+                    const void* e_t, void* partial, void* ticket, void* out,
+                    int b, int m, int n, int per_item, int share,
+                    cudaStream_t s) {
+  sinkhorn_pair_sum_kernel<kPlan, kThreads>
+      <<<(unsigned)b * (unsigned)per_item, kThreads, 0, s>>>(
+          (const float*)xp, (const float*)yp, (const float*)f,
+          (const float*)g, (const float*)log_a, (const float*)log_b,
+          (const float*)e_t, (float*)partial, (unsigned*)ticket, (float*)out,
+          m, n, per_item, share);
+  return (int)cudaGetLastError();
+}
+
+template <bool kPlan>
+int launch_pair_sum_threads(int threads, const void* xp, const void* yp,
+                            const void* f, const void* g, const void* log_a,
+                            const void* log_b, const void* e_t, void* partial,
+                            void* ticket, void* out, int b, int m, int n,
+                            int per_item, int share, cudaStream_t s) {
+  switch (threads) {
+    case 64:
+      return launch_pair_sum<kPlan, 64>(xp, yp, f, g, log_a, log_b, e_t,
+                                        partial, ticket, out, b, m, n,
+                                        per_item, share, s);
+    case 128:
+      return launch_pair_sum<kPlan, 128>(xp, yp, f, g, log_a, log_b, e_t,
+                                         partial, ticket, out, b, m, n,
+                                         per_item, share, s);
+    case 256:
+      return launch_pair_sum<kPlan, 256>(xp, yp, f, g, log_a, log_b, e_t,
+                                         partial, ticket, out, b, m, n,
+                                         per_item, share, s);
+    case 512:
+      return launch_pair_sum<kPlan, 512>(xp, yp, f, g, log_a, log_b, e_t,
+                                         partial, ticket, out, b, m, n,
+                                         per_item, share, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -265,40 +511,31 @@ extern "C" int sinkhorn_lse_launch(const void* xp, const void* yq,
   return (int)cudaGetLastError();
 }
 
-// Rows per CTA, so the caller can size the pair sum's partial scratch.
-extern "C" int sinkhorn_rows_per_cta() { return kRows; }
-
-// xp (B,3,M), yp (B,3,N), f/log_a (B,M), g/log_b (B,N), e_t (B,),
-// partial (B, ceil(M / sinkhorn_rows_per_cta())) scratch, out (B,).
-// plan != 0: the plan sum.
+// xp (B,3,M), yp (B,3,N), f/log_a (B,M), g/log_b (B,N), e_t (B,) float32;
+// out (B,).  The layout (kernels/sinkhorn_lse.py::layout): `per_item` CTAs
+// an item of `threads` threads, each owning `share` rows; with per_item > 1,
+// partial (B * per_item,) float32 scratch and ticket (B,) uint32 counters,
+// zero before the launch and left zero by it.  plan != 0: the plan sum.
 extern "C" int sinkhorn_pair_sum_launch(const void* xp, const void* yp,
                                         const void* f, const void* g,
                                         const void* log_a, const void* log_b,
                                         const void* e_t, void* partial,
-                                        void* out, int b, int m, int n,
-                                        int plan, void* stream) {
+                                        void* ticket, void* out, int b, int m,
+                                        int n, int plan, int threads,
+                                        int per_item, int share,
+                                        void* stream) {
   if (b <= 0) return 0;
-  const int parts = (m + kRows - 1) / kRows;
+  if (m <= 0 || per_item <= 0 || share <= 0 ||
+      (long long)(per_item - 1) * share >= m ||
+      (long long)b * per_item > 0x7fffffffLL ||
+      (per_item > 1 && (partial == nullptr || ticket == nullptr)))
+    return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = (cudaStream_t)stream;
-  if (parts == 0) {
-    cudaMemsetAsync(out, 0, sizeof(float) * (size_t)b, s);
-    return (int)cudaGetLastError();
-  }
-  if (parts > 65535) return (int)cudaErrorInvalidConfiguration;
-  const dim3 grid(b, parts);
-  if (plan)
-    sinkhorn_pair_sum_kernel<true><<<grid, kRows, 0, s>>>(
-        (const float*)xp, (const float*)yp, (const float*)f, (const float*)g,
-        (const float*)log_a, (const float*)log_b, (const float*)e_t,
-        (float*)partial, m, n);
-  else
-    sinkhorn_pair_sum_kernel<false><<<grid, kRows, 0, s>>>(
-        (const float*)xp, (const float*)yp, (const float*)f, (const float*)g,
-        (const float*)log_a, (const float*)log_b, (const float*)e_t,
-        (float*)partial, m, n);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  sum_partials_kernel<<<(b + 127) / 128, 128, 0, s>>>(
-      (const float*)partial, (float*)out, b, parts);
-  return (int)cudaGetLastError();
+  return plan ? launch_pair_sum_threads<true>(threads, xp, yp, f, g, log_a,
+                                              log_b, e_t, partial, ticket,
+                                              out, b, m, n, per_item, share, s)
+              : launch_pair_sum_threads<false>(threads, xp, yp, f, g, log_a,
+                                               log_b, e_t, partial, ticket,
+                                               out, b, m, n, per_item, share,
+                                               s);
 }

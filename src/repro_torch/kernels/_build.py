@@ -107,9 +107,9 @@ def ptxas_report(name: str) -> dict[str, dict[str, int]]:
 
 def stream_handle(device) -> int:
     """The raw ``cudaStream_t`` of ``device``'s current stream, read anew at
-    every call, without the Stream object that
-    ``torch.cuda.current_stream(device).cuda_stream`` builds for it (a
-    large share of a small launch's host time)."""
+    every call, without the Stream object that reading ``.cuda_stream``
+    off ``torch.cuda``'s current stream builds for it (a large share of a
+    small launch's host time)."""
     return torch._C._cuda_getCurrentRawStream(device.index)
 
 

@@ -7,11 +7,16 @@ here as ``reference``).
 
 Codes travel as 32-bit words.  Torch has no popcount, and on the CPU its
 ``uint32`` has no shifts, so on the torch side the words are ``int32``
-tensors that hold the same bit patterns (bit 31 is the sign bit).
+tensors that hold the same bit patterns (bit 31 is the sign bit).  A
+thread of the kernel owns 4 consecutive corpus rows and writes each
+query's 4 distances as one 16-byte store; up to 8 words a code the rows
+sit in registers; :func:`layout` sizes the launch.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -19,7 +24,48 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import hamming_scan_ref as reference  # noqa: F401
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+# the kernel's constants (csrc/hamming.cu)
+THREADS = 128        # a CTA's threads
+ROWS_PER_THREAD = 4  # consecutive corpus rows a thread owns
+TILE_N = THREADS * ROWS_PER_THREAD  # corpus rows a CTA, 512
+MAX_REG_WORDS = 8    # the register path's widest code (lsh_bits <= 256)
+QUERY_GROUP = 4      # queries a CTA of the register path
+CHUNK_GROUP = 16     # queries a CTA of the chunked path
+
+
+class Layout(NamedTuple):
+    """A launch: ``path`` "registers" (W <= 8: a thread's rows in
+    registers, the CTA's query words staged once) or "chunked" (8 words a
+    step); ``query_group`` queries a CTA; ``query_groups`` x ``row_blocks``
+    CTAs of 512 corpus rows, ``ctas`` in all."""
+    path: str
+    query_group: int
+    query_groups: int
+    row_blocks: int
+    ctas: int
+
+
+@functools.lru_cache(maxsize=256)
+def layout(q: int, n: int, w: int, sm_count: int) -> Layout:
+    """The launch of a (Q, W) x (N, W) scan on a card of ``sm_count`` SMs.
+
+    The register path up to 8 words a code, 4 queries a CTA (on the card,
+    NVIDIA H100, groups of 4 wrote the index's 256 x 65,536 and 256 x
+    262,144 outputs faster than groups of 8, 16, 32 or 64), halved while
+    the grid would have fewer CTAs than SMs (a 4-shard mesh's 1024-row
+    scans); wider codes take the chunked path, 16 queries a CTA.
+    """
+    row_blocks = max(1, -(-n // TILE_N))
+    if w > MAX_REG_WORDS:
+        path, group = "chunked", CHUNK_GROUP
+    else:
+        path, group = "registers", max(1, min(QUERY_GROUP, q))
+        while group > 1 and -(-q // group) * row_blocks < sm_count:
+            group = -(-group // 2)
+    groups = max(1, -(-q // group))
+    return Layout(path, group, groups, row_blocks, groups * row_blocks)
 
 
 def pack_codes_u32(codes_u8: np.ndarray) -> np.ndarray:
@@ -66,10 +112,14 @@ def hamming_scan_cuda(codes_q: torch.Tensor, mask_q: torch.Tensor,
     out = torch.empty((nq, n), dtype=torch.int32, device=codes_q.device)
     if nq == 0 or n == 0:
         return out
+    dev = codes_q.device
+    lay = layout(nq, n, w, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
     fn = _build.function("hamming", "hamming_scan_launch", _ARGTYPES)
     err = fn(codes_q.data_ptr(), mask_q.data_ptr(), codes_db.data_ptr(),
-             out.data_ptr(), nq, n, w,
-             torch.cuda.current_stream(codes_q.device).cuda_stream)
+             out.data_ptr(), nq, n, w, lay.query_group,
+             _build.stream_handle(dev))
     if err:
-        raise RuntimeError(f"hamming_scan launch failed: CUDA error {err}")
+        raise RuntimeError(f"hamming_scan launch failed: CUDA error {err} "
+                           f"({lay})")
     return out

@@ -133,6 +133,35 @@ def sinkhorn_operands(rng: np.random.Generator, b: int, m: int, n: int,
             for k, v in arrays.items()}
 
 
+# (B, M, N, weights) of the pair-sum launches that reach each branch of
+# kernels/sinkhorn_lse.py::layout and of the kernel on a 132-SM card: one
+# CTA an item with three stages of rows; 66 CTAs an item, finished by the
+# ticket, with three stages of columns; ten CTAs an item whose weights sit
+# in the last 3 slots of each side only, beside an item with no weight
+PAIR_SUM_CASES = ((200, 600, 40, "dense"), (2, 3000, 3000, "dense"),
+                  (3, 300, 700, "last"))
+
+
+def pair_sum_operands(rng: np.random.Generator, b: int, m: int, n: int,
+                      weights: str, device=None) -> dict[str, torch.Tensor]:
+    """:func:`sinkhorn_operands` with the log weights of ``weights``:
+    ``"dense"``, -log(count) on about 90% of the slots; ``"last"``, -log 3
+    on the last 3 slots of each side and none in item 0, with no diagonal
+    slot on the x side (between two diagonal slots the cost is 0)."""
+    t = sinkhorn_operands(rng, b, m, n, 3, device)
+    for key, k in (("log_a", m), ("log_b", n)):
+        if weights == "dense":
+            keep = torch.from_numpy(rng.random((b, k)) < 0.9)
+            lw = torch.where(keep, -float(np.log(k)), float("-inf"))
+        else:
+            lw = torch.full((b, k), float("-inf"))
+            lw[1:, -3:] = -float(np.log(3.0))
+        t[key] = lw.to(t[key].device)
+    if weights == "last":
+        t["xp"][:, 2] = 0.0
+    return t
+
+
 # (kind, B, M, operand options, solver options) of the auction kernel
 # checks.  "expanded" cases go to auction_lap, "collapsed" and "warm" ones
 # to auction_lap_collapsed.  M = 1, 2, around one warp and 128; one shape
@@ -337,6 +366,12 @@ def auction_agreement(got, want, cost) -> tuple[int, float, bool]:
 HAMMING_CASES = ((1, 1, 4, "ones"), (3, 1, 7, "probe"), (7, 129, 12, "probe"),
                  (13, 300, 16, "ones"), (9, 257, 20, "probe"),
                  (20, 1000, 10, "probe"), (256, 4096, 16, "probe"))
+# ... and for the CUDA kernel's two paths: W = 8 (the widest held in
+# registers) and W = 9 (chunked), N not a multiple of 4, Q not a multiple of
+# the layout's query group (kernels/hamming.py::layout)
+HAMMING_KERNEL_CASES = ((40, 1027, 32, "probe"), (37, 2050, 36, "probe"),
+                        (33, 700, 12, "ones"), (3, 4099, 20, "probe"),
+                        (300, 515, 64, "probe"))
 
 
 def hamming_operands(rng: np.random.Generator, q: int, n: int, nbytes: int,

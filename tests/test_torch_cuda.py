@@ -39,8 +39,9 @@ from repro_torch.kernels.sinkhorn_lse import (
     pack_columns, sinkhorn_lse_cuda, sinkhorn_pair_sum_cuda)
 from repro_torch.kernels.hamming import hamming_scan_cuda
 from repro_torch.metrics.testing import (
-    AUCTION_CASES, HAMMING_CASES, SINKHORN_CASES, auction_operands,
-    hamming_operands, sinkhorn_operands)
+    AUCTION_CASES, HAMMING_CASES, HAMMING_KERNEL_CASES, PAIR_SUM_CASES,
+    SINKHORN_CASES, auction_operands, hamming_operands, pair_sum_operands,
+    sinkhorn_operands)
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -556,6 +557,39 @@ def test_sinkhorn_pair_sum_kernel(cuda, b, m, n, v0, mode):
         assert float(got[0]) == 0.0
 
 
+_PAIR_KEYS = ("xp", "yp", "f", "g", "log_a", "log_b", "e_t")
+
+
+@pytest.mark.parametrize("mode", ["plan", "cost"])
+@pytest.mark.parametrize("case", PAIR_SUM_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_sinkhorn_pair_sum_kernel_layouts(cuda, case, mode):
+    """Every branch of ``layout``: one CTA an item with several row stages,
+    several CTAs an item finished by the ticket with several column stages,
+    weights only in the last slots beside an item with none (exactly 0)."""
+    t = pair_sum_operands(np.random.default_rng(sum(case[:3])), *case, cuda)
+    args = [t[k] for k in _PAIR_KEYS]
+    got = sinkhorn_pair_sum_cuda(*args, mode)
+    torch.testing.assert_close(got, ref.sinkhorn_pair_sum_ref(*args, mode),
+                               rtol=1e-4, atol=1e-5)
+    assert torch.equal(sinkhorn_pair_sum_cuda(*args, mode), got)
+    if case[3] == "last":
+        assert float(got[0]) == 0.0
+
+
+def test_sinkhorn_pair_sum_tickets_reset(cuda):
+    """Three launches on one input (66 CTAs an item, summed by the ticket)
+    interleaved with launches on another: bitwise equal."""
+    t = sinkhorn_operands(np.random.default_rng(3), 2, 3200, 3200, 40, cuda)
+    one = [t[k] for k in _PAIR_KEYS]
+    t = pair_sum_operands(np.random.default_rng(4), 3, 300, 700, "last", cuda)
+    other = [t[k] for k in _PAIR_KEYS]
+    first = sinkhorn_pair_sum_cuda(*one, "plan")
+    for mode in ("plan", "cost"):
+        sinkhorn_pair_sum_cuda(*other, mode)
+        assert torch.equal(sinkhorn_pair_sum_cuda(*one, "plan"), first)
+
+
 def _random_pairs(seed, b, s, device):
     from repro_torch.core.persistence import Diagrams
     from repro_torch.metrics.testing import random_diagram
@@ -671,13 +705,26 @@ def _hamming_words(case, device):
     return [as_int32_words(pack_codes_u32(a)).to(device) for a in arrays]
 
 
-@pytest.mark.parametrize("case", HAMMING_CASES + ((256, 262144, 16, "probe"),),
+@pytest.mark.parametrize("case", HAMMING_CASES + ((256, 262144, 16, "probe"),)
+                         + HAMMING_KERNEL_CASES,
                          ids=lambda c: "q{}_n{}_b{}_{}".format(*c))
 def test_hamming_scan_kernel(cuda, case):
     cq, cd, mq = _hamming_words(case, cuda)
     got = hamming_scan_cuda(cq, mq, cd)
     assert torch.equal(got, ref.hamming_scan_ref(cq, mq, cd))
     assert torch.equal(hamming_scan_cuda(cq, mq, cd), got)
+
+
+@pytest.mark.parametrize("case", HAMMING_KERNEL_CASES,
+                         ids=lambda c: "q{}_n{}_b{}_{}".format(*c))
+def test_hamming_scan_kernel_unaligned_corpus(cuda, case):
+    """The corpus one word into its storage, so its rows are not on 16-byte
+    boundaries: the kernel loads word by word, with the same bits."""
+    cq, cd, mq = _hamming_words(case, cuda)
+    shifted = torch.cat([cd.new_zeros(1), cd.flatten()])[1:].view(cd.shape)
+    assert shifted.data_ptr() % 16 != 0
+    assert torch.equal(hamming_scan_cuda(cq, mq, shifted),
+                       ref.hamming_scan_ref(cq, mq, cd))
 
 
 def test_hamming_wrapper_launches_and_counts(cuda):
