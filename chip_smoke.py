@@ -6,7 +6,7 @@
 Builds the ten hand-written kernels from the eight sources in
 ``src/repro_torch/csrc`` (one nvcc per source, in parallel), holds each
 kernel against its plain PyTorch version on the card, then drives the
-port's five paths:
+port's seven paths:
 
 * reduce -> repack -> persist through ``make_topo_plan`` at three sizes: the
   n64 serve rung (4096 graphs), the DD rung of Table 2 (256 graphs of 320
@@ -37,7 +37,19 @@ port's five paths:
   cold and warm, and ``bottleneck_approx``; the DD rung's diagrams as 128
   pairs at ``n_points=64`` in both layouts, against the Hungarian oracle
   where the compaction is exact; a 64 x 64 ``pairwise``; and
-  ``metrics_bench``'s auction parity gate of 200 random pairs.
+  ``metrics_bench``'s auction parity gate of 200 random pairs;
+* the paper's last two reductions: Table 3's strong collapse (the
+  Email-Enron surrogate, every superlevel complex at step sizes 4 and 12,
+  one ``domination`` launch a round for every threshold) and Fig 5b's ego
+  nets (every 1-hop ego net of a BA(192, 3) host at n_pad 64, then PD_0
+  through the plan with and without PrunIT);
+* TopoStream over 4096 graphs of n_pad 64: an ego-decay stream (the
+  hit-heavy regime) and a community-churn stream scoring drift with
+  ``exact_w`` at ``auto:q0.99`` (the recompute-bound regime).  Each step's
+  verdict launches ``kcore_peel`` and ``domination``, and its recompute runs
+  the plan on a power-of-two sub-batch of the misses; after every step the
+  streamed pairs are bitwise a direct ``topological_signature``, and a CPU
+  stream over the first 64 graphs has the same verdicts and Diagrams.
 
 CUDA results are compared with the same functions run on the CPU: bitwise
 where the computation is exact, within a stated tolerance where float sums
@@ -50,7 +62,8 @@ its layout (and three launches interleaved with others, bitwise) and
 ``pairwise_l1`` layouts against each other bitwise.  Then one n64
 execution, one n64 clustering call, one index run (and the sharded LSH
 query alone), one full-tensor Sinkhorn call and DD-rung exact_w calls in
-both layouts are profiled for device time by kernel, and each kernel is
+both layouts, and one step of each stream, are profiled for device time
+by kernel, and each kernel is
 timed at the largest input each phase gave it (every kernel also on the
 device, behind a sleep that keeps the host out of the time, and all but
 the auction kernels for the wrapper's host time a call, with the cluster
@@ -105,6 +118,25 @@ SOURCE["sinkhorn_pair_sum"] = SOURCE["sinkhorn_lse"]  # one source, both
 SOURCE["auction_lap_collapsed"] = SOURCE["auction_lap"]
 SOURCE["hamming_scan"] = "src/repro_torch/csrc/hamming.cu"
 N64_CAPS = dict(edge_cap=320, tri_cap=512)
+# Table 3's filtration step sizes, and Fig 5b's caps (dim 0, superlevel)
+TABLE3_DELTAS = (4, 12)
+FIG5B_CAPS = dict(edge_cap=192, tri_cap=8)
+# the stream cells: 4096 graphs filling n_pad 64.  The ego-decay layout
+# (2 hubs + 14 core, 24 double and 24 pendant satellites, a core edge
+# toggled in a quarter of the graphs a step) reaches 186 edges and 503
+# triangles over 4096 graphs and 24 steps (a CPU draw), the churn layout
+# (8 communities of 8, p_in 0.5, p_out 0.02, 2 + 2 edges a step) 171 and
+# 186; the caps leave room for the card's draws, and check_caps holds them
+STREAM_BATCH = 4096
+STREAM_CPU_GRAPHS = 64
+# (one step more than the phase applies: profile_stream takes the last)
+STREAM_EGO = dict(n_core=16, n_double=24, n_pendant=24, steps=25, toggles=1,
+                  p_core_edge=0.25)
+STREAM_EGO_CFG = dict(dim=1, method="both", edge_cap=256, tri_cap=1024)
+STREAM_CHURN = dict(n_vertices=64, n_comm=8, p_in=0.5, p_out=0.02, steps=17,
+                    churn=2)
+STREAM_CHURN_CFG = dict(dim=1, method="both", drift_metric="exact_w",
+                        drift_threshold="auto:q0.99", **N64_CAPS)
 N320_CAPS = dict(edge_cap=1024, tri_cap=256)
 # the caps benchmarks/fig2_clustering.py gives each probe
 FIG2_ER_CAPS = dict(edge_cap=128, tri_cap=512)
@@ -1981,6 +2013,280 @@ def phase_auction_parity(dev, launches, recorder, n_pairs=200) -> dict:
     return out
 
 
+def phase_strong_collapse_table3(dev, launches, recorder) -> dict:
+    """Table 3's strong collapse on the card: the Email-Enron surrogate at
+    n_pad 512, superlevel, every filtration complex collapsed at the step
+    sizes 4 and 12; the masks held bitwise against the CPU port."""
+    import math
+
+    import torch
+    from repro_torch.core.strong_collapse import (
+        strong_collapse_filtration_masks)
+    from repro_torch.data.graphs import load_large_network
+
+    g = load_large_network("Email-Enron", 29, n_pad=512, device=dev)
+    g_cpu = g.to("cpu")
+    fmax = float(g.f[g.mask].max())
+    out = {"phase": "strong_collapse_table3", "graphs": g.batch, "n_pad": g.n,
+           "n_vertices": int(g.n_vertices().sum()),
+           "n_edges": int(g.n_edges().sum()), "f_max": fmax}
+    for delta in TABLE3_DELTAS:
+        n_steps = max(2, math.ceil(fmax / delta))
+        th = torch.arange(1, n_steps + 1, dtype=torch.float32,
+                          device=dev) * delta
+        (sub, col), counts, first_s = _drive(
+            recorder, "strong_collapse_table3",
+            strong_collapse_filtration_masks, g, th, n_steps, False)
+        sub_c, col_c = strong_collapse_filtration_masks(
+            g_cpu, th.cpu(), n_steps, sublevel=False)
+        check(torch.equal(sub.cpu(), sub_c) and torch.equal(col.cpu(), col_c),
+              f"strong_collapse_table3 delta {delta}: CUDA and CPU masks "
+              "differ")
+        ms = _host_ms(lambda: strong_collapse_filtration_masks(
+            g, th, n_steps, sublevel=False))
+        out[f"delta{delta}"] = {
+            "n_filtration_steps": n_steps,
+            "vertices_in_complexes": int(sub.sum()),
+            "vertices_after_collapse": int(col.sum()),
+            "domination_launches": counts["domination"],
+            "first_run_ms": first_s * 1e3, "ms": ms,
+            "launches": _add_counts(launches, counts),
+            "cpu_masks_equal": True}
+    return out
+
+
+def phase_ego_fig5b(dev, launches, recorder) -> dict:
+    """Fig 5b on the card: every 1-hop ego net of a BA(192, 3) host graph
+    with degree filtering, at n_pad 64, held bitwise against the CPU port;
+    then PD_0 of every ego net through the plan for "none" and "prunit" at
+    the benchmark's caps (superlevel), Diagrams bitwise the CPU port's."""
+    import torch
+    from repro_torch.core.api import make_topo_plan
+    from repro_torch.core.persistence import diagrams_bitwise_equal
+    from repro_torch.data.ego import ego_batch, ego_sizes
+    from repro_torch.data.graphs import barabasi_albert
+
+    host = barabasi_albert(3, 1, 192, 192, 3, device=dev)
+    f = host.degrees()[0].to(torch.float32)
+    egos, _, first_s = _drive(recorder, "ego_fig5b", ego_batch, host.adj[0],
+                              f, 64)
+    want = ego_batch(host.adj[0].cpu(), f.cpu(), 64, device="cpu")
+    check(all(torch.equal(getattr(egos, k).cpu(), getattr(want, k))
+              for k in ("adj", "mask", "f")),
+          "ego_fig5b: CUDA and CPU ego nets differ")
+    sizes = ego_sizes(host.adj[0])
+    out = {"phase": "ego_fig5b", "host_vertices": 192, "egos": egos.batch,
+           "n_pad": egos.n, "ego_size_max": int(sizes.max()),
+           "ego_size_mean": float(sizes.float().mean()),
+           "extract_first_ms": first_s * 1e3,
+           "extract_ms": _host_ms(lambda: ego_batch(host.adj[0], f, 64)),
+           "cpu_egos_equal": True}
+    for method in ("none", "prunit"):
+        plan = make_topo_plan(dim=0, method=method, sublevel=False,
+                              **FIG5B_CAPS)
+        d, counts, first_s = _drive(recorder, "ego_fig5b", plan.execute, egos)
+        check(diagrams_bitwise_equal(plan.execute(want), type(d)(
+            *(getattr(d, k).cpu() for k in ("birth", "death", "dim",
+                                            "valid")))),
+              f"ego_fig5b {method}: CUDA and CPU Diagrams differ")
+        out[method] = {"pd0_first_ms": first_s * 1e3,
+                       "pd0_ms": _host_ms(lambda: plan.execute(egos)),
+                       "mean_betti0": float(d.betti(0).float().mean()),
+                       "launches": _add_counts(launches, counts),
+                       "cpu_bitwise_equal": True}
+    out["time_reduction_pct"] = (100.0 * (out["none"]["pd0_ms"]
+                                          - out["prunit"]["pd0_ms"])
+                                 / out["none"]["pd0_ms"])
+    return out
+
+
+def _sorted_pairs(d, dims):
+    """Per graph and dimension, the (birth, death) pairs sorted by birth
+    then death (absent rows as (inf, inf)) and their count: the tensors
+    ``dim_pairs`` compares, for the whole batch at once."""
+    import torch
+
+    out = []
+    for k in dims:
+        sel = d.valid & (d.dim == k)
+        b = torch.where(sel, d.birth, float("inf"))
+        de = torch.where(sel, d.death, float("inf"))
+        o = torch.sort(de, dim=-1, stable=True).indices
+        b, de = b.gather(1, o), de.gather(1, o)
+        o = torch.sort(b, dim=-1, stable=True).indices
+        out += [b.gather(1, o), de.gather(1, o), sel.sum(-1)]
+    return out
+
+
+def _same_pairs(d1, d2, dims) -> bool:
+    import torch
+
+    return all(torch.equal(x, y) for x, y in
+               zip(_sorted_pairs(d1, dims), _sorted_pairs(d2, dims)))
+
+
+def _counting_syncs(fn, *args):
+    """``fn(*args)`` with CUDA's sync debug mode on; returns (result, the
+    number of synchronizing calls it warned about)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message).lower() for w in caught)
+
+
+def phase_stream(name, make_stream, cfg, launches, recorder,
+                 n_cpu=STREAM_CPU_GRAPHS) -> tuple[dict, tuple]:
+    """A TopoStream over the stream ``make_stream()`` gives (on the card):
+    after every step the guaranteed dims' pairs are bitwise a direct
+    ``topological_signature`` of the current state, and a CPU stream over
+    the same deltas of the first ``n_cpu`` graphs has the same per-graph
+    verdicts and bitwise the same Diagrams (and drift within the exact
+    tolerance).  A second replay is timed: updates/s, verdict and
+    recompute ms a step from the stream's own spans."""
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.core.api import make_topo_plan
+    from repro_torch.core.delta import delta_step
+    from repro_torch.core.persistence import Diagrams, diagrams_bitwise_equal
+    from repro_torch.stream import TopoStream, TopoStreamConfig
+
+    g0, deltas = make_stream()
+    steps = deltas.steps - 1  # the last step is left for profile_stream
+    config = TopoStreamConfig(**cfg)
+    dims = (tuple(range(config.dim + 1)) if config.exact_dims == "all"
+            else (config.dim,))
+    scratch = make_topo_plan(dim=config.dim, method=config.method,
+                             sublevel=config.sublevel,
+                             edge_cap=config.edge_cap,
+                             tri_cap=config.tri_cap,
+                             quad_cap=config.quad_cap,
+                             reducer=config.reducer)
+    rows = slice(0, n_cpu)
+
+    stream, counts, init_s = _drive(recorder, name, TopoStream, g0, config)
+    phase_counts = dict(counts)
+    cpu = TopoStream(g0.index(torch.arange(n_cpu, device=g0.device)),
+                     config, device="cpu")
+    syncs, apply_ms, scratch_ms = [], [], []
+    drift_err = 0.0
+    for t in range(steps):
+        delta = delta_step(deltas, t)
+        (d, n_sync), counts, seconds = _drive(
+            recorder, name, _counting_syncs, stream.apply, delta)
+        for k, v in counts.items():
+            phase_counts[k] += v
+        syncs.append(n_sync)
+        apply_ms.append(seconds * 1e3)
+        t0 = time.perf_counter()
+        ref = scratch.execute(stream.graph)
+        torch.cuda.synchronize()
+        scratch_ms.append((time.perf_counter() - t0) * 1e3)
+        check(_same_pairs(d, ref, dims),
+              f"{name} step {t}: streamed pairs differ from a direct "
+              "topological_signature")
+        d_cpu = cpu.apply(delta.index(rows).to("cpu"))
+        for flag, v in cpu.last_flags.items():
+            check(np.array_equal(stream.last_flags[flag][rows], v),
+                  f"{name} step {t}: CUDA and CPU verdicts differ ({flag})")
+        check(diagrams_bitwise_equal(d_cpu, Diagrams(
+            *(getattr(d, k)[rows].cpu() for k in ("birth", "death", "dim",
+                                                  "valid")))),
+              f"{name} step {t}: CUDA and CPU Diagrams differ")
+        if config.drift_metric is not None:
+            got, want = stream.last_drift[rows], cpu.last_drift
+            check(bool(np.all(np.abs(got - want)
+                              <= EX_ATOL + EX_RTOL * np.abs(want))),
+                  f"{name} step {t}: CUDA and CPU drift differ")
+            drift_err = max(drift_err, float(np.abs(got - want).max()))
+    sizes = sorted(set(stream.recompute_sizes))
+    s = stream.stats
+    out = {"phase": name, "graphs": g0.batch, "n_pad": g0.n, "steps": steps,
+           **{k: v for k, v in cfg.items() if k != "drift_threshold"},
+           "drift_threshold": str(config.drift_threshold),
+           "graph_updates": s["graph_updates"], "skip_rate": stream.skip_rate(),
+           "hits": s["hits"], "coral_hits": s["coral_hits"],
+           "prunit_hits": s["prunit_hits"], "recomputes": s["recomputes"],
+           "recompute_batches": s["recompute_batches"],
+           "recomputed_rows": s["recomputed_rows"],
+           "anomalies": s["anomalies"],
+           "recompute_sizes": sizes,
+           "recompute_size_counts": {str(k): stream.recompute_sizes.count(k)
+                                     for k in sizes},
+           "host_syncs_per_step": float(np.mean(syncs)),
+           "host_syncs_max": int(max(syncs)),
+           "main_run_apply_ms_per_step": float(np.mean(apply_ms)),
+           "scratch_plan_ms_per_step": float(np.mean(scratch_ms)),
+           "init_ms": init_s * 1e3,
+           "launches": _add_counts(launches, phase_counts),
+           "parity_steps": steps, "cpu_graphs": n_cpu,
+           "cpu_drift_max_abs_err": drift_err}
+
+    # timed replay from g0: no checks, tracing on for the stream's spans
+    obs.reset()
+    obs.configure(enabled=True)
+    try:
+        timed = TopoStream(g0, config)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(steps):
+            timed.apply(delta_step(deltas, t))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        obs.configure(enabled=False)
+    spans = obs.get_instrument("obs.span_seconds")
+    for span_name in ("stream.verdict", "stream.recompute", "stream.drift"):
+        st = spans.series().get((("span", span_name),))
+        out[f"{span_name.split('.')[1]}_ms_per_step"] = (
+            st.sum / steps * 1e3 if st is not None else 0.0)
+    check(timed.stats == s, f"{name}: the timed replay's stats differ")
+    out.update(wall_ms=wall * 1e3, ms_per_step=wall / steps * 1e3,
+               updates_per_s=s["graph_updates"] / wall,
+               scratch_updates_per_s=g0.batch / (np.mean(scratch_ms) / 1e3))
+    obs.reset()
+    return out, (stream, deltas)
+
+
+def _profile_stream_step(name, stream, deltas, t) -> dict:
+    """``_profile`` of step ``t`` applied to copies of ``stream``'s state,
+    which must be the state before step ``t`` (the stream itself is left
+    as it is)."""
+    import copy
+
+    from repro_torch.core.delta import delta_step
+
+    delta = delta_step(deltas, t)
+
+    def step():
+        s = copy.copy(stream)
+        s.stats = dict(stream.stats)
+        s.recompute_sizes = []
+        s._all_dims_exact = stream._all_dims_exact.copy()
+        s._drift_calibrator = copy.deepcopy(stream._drift_calibrator)
+        s.apply(delta)
+
+    return _profile(name, step)
+
+
+def phase_profile_stream(runs) -> dict:
+    """One step of each stream phase profiled: the step its phase left
+    unapplied, on the state the phase ended in (device busy and idle
+    share, and each kernel's device time)."""
+    return {"phase": "profile_stream",
+            "steps": {name: _profile_stream_step(name, stream, deltas,
+                                                 deltas.steps - 1)
+                      for name, (stream, deltas) in runs.items()}}
+
+
 def _profile(name, fn, reps: int = 1) -> dict:
     """Device time by kernel over ``reps`` steady ``fn()`` calls
     (torch.profiler, CUDA activity), the device's idle share of the wall
@@ -2662,6 +2968,8 @@ def main() -> int:
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.data.temporal import (community_churn_stream,
+                                           ego_decay_stream)
     from repro_torch.launch import make_index_mesh
 
     dev = torch.device("cuda")
@@ -2708,6 +3016,26 @@ def main() -> int:
             emit(record)
             emit(phase_exact_pairwise(d64, launches, recorder))
             emit(phase_auction_parity(dev, launches, recorder))
+            emit(phase_strong_collapse_table3(dev, launches, recorder))
+            emit(phase_ego_fig5b(dev, launches, recorder))
+            streams = {}
+            for name, make, cfg in (
+                    ("stream_ego_decay_n64",
+                     lambda: ego_decay_stream(31, STREAM_BATCH, 64,
+                                              **STREAM_EGO, device=dev),
+                     STREAM_EGO_CFG),
+                    ("stream_churn_n64",
+                     lambda: community_churn_stream(37, STREAM_BATCH, 64,
+                                                    **STREAM_CHURN,
+                                                    device=dev),
+                     STREAM_CHURN_CFG)):
+                record, streams[name] = phase_stream(name, make, cfg,
+                                                     launches, recorder)
+                emit(record)
+            sizes = {n for stream, _ in streams.values()
+                     for n in stream.recompute_sizes}
+            check(len(sizes) >= 3, f"the stream phases recomputed at only "
+                                   f"{sorted(sizes)} graphs a batch")
         finally:
             Recorder.uninstall(originals)
         emit(phase_profile(n64, N64_CAPS))
@@ -2715,6 +3043,7 @@ def main() -> int:
         emit(phase_profile_index(*index_run, sharded))
         emit(phase_profile_sinkhorn(*sk_pairs))
         emit(phase_profile_exact(*ex_pairs))
+        emit(phase_profile_stream(streams))
         rows = contract_rows(
             [r for ph in ("signature_n64", "clustering_n64", "index_n64",
                           "sinkhorn_full_n320", "exact_n320")
@@ -2724,7 +3053,9 @@ def main() -> int:
         at = {ph: kernel_rows(recorder, ph)
               for ph in ("signature_n320", "table1_n1024", "clustering_n1024",
                          "clustering_twitter", "fig2", "sinkhorn_n64",
-                         "sinkhorn_parity", "exact_n64")}
+                         "sinkhorn_parity", "exact_n64",
+                         "strong_collapse_table3", "ego_fig5b",
+                         "stream_ego_decay_n64", "stream_churn_n64")}
         # the 65,536-row Gram is index_n64's 256-fold: its plain version
         # and cdist would take minutes, so only the scan is timed there
         at["sharded_index_n65536"] = kernel_rows(

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.core.graph import INF
@@ -209,3 +210,25 @@ def complex_caps_ok(adj: torch.Tensor, mask: torch.Tensor, edge_cap: int,
         quad = torch.einsum("bijk,bkl,bijl->b", x, up.float(), x)
         ok = ok & (quad <= quad_cap)
     return ok
+
+
+def graph_power_distances(adj: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """All-pairs shortest-path hop distances (NumPy; inf if disconnected)."""
+    adj = np.asarray(adj, bool)
+    mask = np.asarray(mask, bool)
+    n = adj.shape[0]
+    dist = np.full((n, n), np.inf)
+    reach = adj & mask[None, :] & mask[:, None]
+    np.fill_diagonal(dist, 0.0)
+    dist[reach & np.isinf(dist)] = 1.0
+    cur = reach.copy()
+    for step in range(2, n + 1):
+        cur = (cur @ reach) & mask[None, :] & mask[:, None]
+        newly = cur & np.isinf(dist)
+        if not newly.any():
+            break
+        dist[newly] = float(step)
+    dist[~mask, :] = np.inf
+    dist[:, ~mask] = np.inf
+    np.fill_diagonal(dist, 0.0)
+    return dist

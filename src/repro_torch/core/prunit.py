@@ -30,14 +30,16 @@ def domination_matrix(adj: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def eligibility_matrix(adj: torch.Tensor, mask: torch.Tensor, f: torch.Tensor,
-                       sublevel: bool = True,
+                       sublevel: bool = True, dom_fn=domination_matrix,
                        equal_only: bool = False) -> torch.Tensor:
     """(B, N, N) bool E with E[u, v] = "PrunIT may remove u with witness v".
 
-    ``equal_only`` tightens the filtration condition to ``f(u) == f(v)``,
-    the orientation-free case behind the ``strong_collapse`` pass.
+    ``dom_fn(adj, mask)`` gives the domination matrix (on CUDA the default
+    launches the ``domination`` kernel).  ``equal_only`` tightens the
+    filtration condition to ``f(u) == f(v)``, the orientation-free case
+    behind the ``strong_collapse`` pass.
     """
-    dom = domination_matrix(adj, mask)
+    dom = dom_fn(adj, mask)
     fu, fv = f[..., :, None], f[..., None, :]
     if equal_only:
         f_ok = fu == fv
@@ -49,10 +51,11 @@ def eligibility_matrix(adj: torch.Tensor, mask: torch.Tensor, f: torch.Tensor,
 
 
 def prune_round_mask(adj: torch.Tensor, mask: torch.Tensor, f: torch.Tensor,
-                     sublevel: bool = True,
+                     sublevel: bool = True, dom_fn=domination_matrix,
                      equal_only: bool = False) -> torch.Tensor:
     """One parallel PrunIT round: the mask of vertices that survive."""
-    elig = eligibility_matrix(adj, mask, f, sublevel, equal_only)
+    elig = eligibility_matrix(adj, mask, f, sublevel, dom_fn,
+                              equal_only=equal_only)
     n = adj.shape[-1]
     idx = torch.arange(n, device=adj.device)
     v_lt_u = idx[None, :] < idx[:, None]  # [u, v]: v < u
