@@ -6,7 +6,7 @@
 Builds the ten hand-written kernels from the eight sources in
 ``src/repro_torch/csrc`` (one nvcc per source, in parallel), holds each
 kernel against its plain PyTorch version on the card, then drives the
-port's seven paths:
+port's eight paths:
 
 * reduce -> repack -> persist through ``make_topo_plan`` at three sizes: the
   n64 serve rung (4096 graphs), the DD rung of Table 2 (256 graphs of 320
@@ -49,7 +49,18 @@ port's seven paths:
   verdict launches ``kcore_peel`` and ``domination``, and its recompute runs
   the plan on a power-of-two sub-batch of the misses; after every step the
   streamed pairs are bitwise a direct ``topological_signature``, and a CPU
-  stream over the first 64 graphs has the same verdicts and Diagrams.
+  stream over the first 64 graphs has the same verdicts and Diagrams;
+* the serving layer: TopoServe at ``serve_bench``'s configuration over the
+  default bucket ladder (4096 requests of 6-55 vertices; every served
+  Diagrams bitwise a direct execution of its recorded batch, one batch per
+  bucket bitwise a CPU TopoServe's; then ``repack="on"`` with
+  ``method="both"``), the same round behind the SLO engine, the scrape
+  exporter and a ``serve_forever`` thread (``watch_overhead_pct``),
+  SimilarityServe over the n64 index with the exact re-rank (4096 corpus
+  graphs, 256 queries; sharded on ``make_index_mesh()``; the exact stage 1
+  on 512 graphs; 64 sampled distances against the Hungarian oracle), and
+  StreamServe with four ego-decay sessions of 1024 graphs, every step
+  bitwise a direct TopoStream.
 
 CUDA results are compared with the same functions run on the CPU: bitwise
 where the computation is exact, within a stated tolerance where float sums
@@ -138,6 +149,17 @@ STREAM_CHURN = dict(n_vertices=64, n_comm=8, p_in=0.5, p_out=0.02, steps=17,
 STREAM_CHURN_CFG = dict(dim=1, method="both", drift_metric="exact_w",
                         drift_threshold="auto:q0.99", **N64_CAPS)
 N320_CAPS = dict(edge_cap=1024, tri_cap=256)
+# the serving cells: serve_bench's TopoServe configuration over the default
+# bucket ladder at 4096 requests; SimilarityServe over index_n64's index
+# (4096 corpus graphs, 256 queries; the exact stage 1 on 512 and 32); four
+# StreamServe sessions of the ego-decay stream (1024 graphs, 16 steps each)
+SERVE_REQUESTS = 4096
+SERVE_TOPO_CFG = dict(dim=1, method="prunit", sublevel=False, max_batch=128,
+                      pad_batch_to=128, record_batches=True)
+SERVE_SIM_CORPUS, SERVE_SIM_QUERIES = 4096, 256
+SERVE_SIM_EXACT = (512, 32)
+SERVE_ORACLE_SAMPLES, SERVE_ORACLE_SEED = 64, 29
+SERVE_STREAM = (4, 1024, 16)
 # the caps benchmarks/fig2_clustering.py gives each probe
 FIG2_ER_CAPS = dict(edge_cap=128, tri_cap=512)
 FIG2_TWITTER_CAPS = dict(edge_cap=192, tri_cap=192)
@@ -2256,6 +2278,485 @@ def phase_stream(name, make_stream, cfg, launches, recorder,
     return out, (stream, deltas)
 
 
+# --------------------------------------------------------------- serving
+
+def serve_traffic(count, seed, n_pad=56):
+    """``serve_bench``'s request stream: graphs of 6-55 vertices, a third
+    each ER(p 0.1-0.3), BA(m 3) and powerlaw-cluster(m 2, p 0.4), drawn by
+    the port's generators on the host; ``[(edges, n_vertices)]``."""
+    import numpy as np
+    from repro_torch.data.graphs import (
+        barabasi_albert, erdos_renyi, powerlaw_cluster)
+
+    rng = np.random.default_rng(seed)
+    n = rng.integers(6, 56, count)
+    kind = rng.integers(0, 3, count)
+    p = rng.uniform(0.1, 0.3, count).astype(np.float32)
+    adj = np.zeros((count, n_pad, n_pad), bool)
+    for k in range(3):
+        sel = np.nonzero(kind == k)[0]
+        if k == 0:
+            g = erdos_renyi((seed, k), len(sel), n_pad, n[sel], p[sel],
+                            device="cpu")
+        elif k == 1:
+            g = barabasi_albert((seed, k), len(sel), n_pad, n[sel], 3,
+                                device="cpu")
+        else:
+            g = powerlaw_cluster((seed, k), len(sel), n_pad, n[sel], 2, 0.4,
+                                 device="cpu")
+        adj[sel] = g.adj.numpy()
+    return [(list(zip(*(x.tolist() for x in np.nonzero(np.triu(a))))),
+             int(nv)) for a, nv in zip(adj, n)]
+
+
+def _edge_lists(g):
+    """A GraphBatch with prefix masks as ``[(edges, n_vertices)]``."""
+    import numpy as np
+
+    adj = g.adj.cpu().numpy()
+    nv = g.mask.sum(-1).cpu().numpy()
+    return [(list(zip(*(x.tolist() for x in np.nonzero(np.triu(a))))),
+             int(n)) for a, n in zip(adj, nv)]
+
+
+def _bits(x):
+    """A float tensor's bit patterns (so NaN rows compare equal)."""
+    import torch
+
+    return x.view(torch.int32) if x.is_floating_point() else x
+
+
+def _diagrams_bitwise(a, b) -> bool:
+    """Every field of two Diagrams bit for bit (NaN rows included), on
+    their device."""
+    import torch
+
+    return all(torch.equal(_bits(getattr(a, k)), _bits(getattr(b, k)))
+               for k in ("birth", "death", "dim", "valid"))
+
+
+def _stacked(rows):
+    """Per-graph Diagrams rows stacked into one batch."""
+    import torch
+    from repro_torch.core.persistence import Diagrams
+
+    return Diagrams(*(torch.stack([getattr(r, k) for r in rows])
+                      for k in ("birth", "death", "dim", "valid")))
+
+
+def _serve_round(srv, reqs):
+    """Submit every request, drain, collect: (futures, submit s, drain s)."""
+    t0 = time.perf_counter()
+    futs = [srv.submit(edges=e, n_vertices=n) for e, n in reqs]
+    t1 = time.perf_counter()
+    srv.drain()
+    for f in futs:
+        f.result(timeout=0)
+    return futs, t1 - t0, time.perf_counter() - t1
+
+
+def _latency_by_bucket(futs) -> dict:
+    import numpy as np
+
+    by = {}
+    for f in futs:
+        by.setdefault(f"n{f.bucket.n_pad}", []).append(f.latency_s() * 1e3)
+    return {b: {"graphs": len(v), "p50_ms": float(np.percentile(v, 50)),
+                "p99_ms": float(np.percentile(v, 99))}
+            for b, v in sorted(by.items(), key=lambda kv: int(kv[0][1:]))}
+
+
+def _served_parity(srv, dev) -> int:
+    """Every executed batch's served rows bitwise a direct plan execution of
+    the same packed batch (``topological_signature``, or with repack on the
+    two-phase plan on the serve-wide ladder); returns the rows checked."""
+    from repro_torch.core.api import make_topo_plan, topological_signature
+    from repro_torch.serve import pack_requests
+    from repro_torch.serve.topo_serve import repack_ladder_for
+
+    c = srv.config
+    checked = 0
+    for bucket, reqs, futs in srv.executed_batches:
+        g = pack_requests(reqs, bucket, dev)
+        if c.repack == "off":
+            direct = topological_signature(
+                g, dim=c.dim, method=c.method, sublevel=c.sublevel,
+                edge_cap=bucket.edge_cap, tri_cap=bucket.tri_cap,
+                quad_cap=c.quad_cap)
+        else:
+            direct = make_topo_plan(
+                dim=c.dim, method=c.method, sublevel=c.sublevel,
+                edge_cap=bucket.edge_cap, tri_cap=bucket.tri_cap,
+                quad_cap=c.quad_cap, repack="on",
+                ladder=repack_ladder_for(tuple(sorted(c.buckets)),
+                                         c.quad_cap)).execute(g)
+        check(_diagrams_bitwise(_stacked([f.result(timeout=0)
+                                          for f in futs]),
+                                _rows(direct, slice(0, len(futs)))),
+              f"served Diagrams differ from a direct execution of their "
+              f"batch (bucket n{bucket.n_pad}, {len(futs)} graphs)")
+        checked += len(futs)
+    return checked
+
+
+def _cpu_parity(srv) -> dict:
+    """The first executed batch of each bucket through a CPU TopoServe of
+    the same configuration: bitwise the card's rows."""
+    from repro_torch.serve import TopoServe
+
+    seen = {}
+    for bucket, reqs, futs in srv.executed_batches:
+        if bucket in seen:
+            continue
+        cpu = TopoServe(srv.config, device="cpu")
+        cpu_futs = [cpu.submit(edges=r.edges, n_vertices=r.n_vertices,
+                               f=r.f) for r in reqs]
+        cpu.drain()
+        got = _stacked([f.result(timeout=0) for f in futs])
+        check(_diagrams_bitwise(_stacked([f.result(timeout=0)
+                                          for f in cpu_futs]),
+                                got.to("cpu")),
+              f"bucket n{bucket.n_pad}: CUDA and CPU TopoServe differ")
+        seen[bucket] = len(futs)
+    return {f"n{b.n_pad}": n for b, n in sorted(seen.items())}
+
+
+def phase_serve_topo(dev, launches, recorder) -> tuple[dict, tuple]:
+    """TopoServe at ``serve_bench``'s configuration over the default bucket
+    ladder: 4096 requests, a warm round, then the timed round (the main
+    path's run); every served Diagrams bitwise a direct execution of its
+    recorded batch, one batch per bucket bitwise a CPU TopoServe's.  Then
+    the same traffic with ``repack="on"`` and ``method="both"``."""
+    import dataclasses
+    import gc
+
+    from repro_torch.core.api import plan_cache_info
+    from repro_torch.serve import TopoServe, TopoServeConfig
+
+    reqs = serve_traffic(SERVE_REQUESTS, seed=0)
+    base = TopoServeConfig(**SERVE_TOPO_CFG)
+    out = {"phase": "serve_topo", "requests": len(reqs),
+           "buckets": [f"n{b.n_pad}" for b in base.buckets],
+           "config": SERVE_TOPO_CFG}
+    phase_counts = {k: 0 for k in launches}
+    bare = None
+    for label, cfg in (("prunit", base),
+                       ("both_repack", dataclasses.replace(
+                           base, method="both", repack="on"))):
+        srv = TopoServe(cfg)
+        _serve_round(srv, reqs)              # warm round
+        srv.executed_batches.clear()
+        batches0 = srv.stats["batches"]
+        cache0 = plan_cache_info()
+        rungs0 = dict(srv.stats["repack_rungs"])
+        gc.collect()
+        (futs, submit_s, drain_s), counts, seconds = _drive(
+            recorder, "serve_topo", _serve_round, srv, reqs)
+        for k in launches:
+            phase_counts[k] += counts[k]
+        cache = plan_cache_info()
+        rungs = {f"n{b}->n{r}": v - rungs0.get((b, r), 0)
+                 for (b, r), v in sorted(srv.stats["repack_rungs"].items())}
+        out[label] = {
+            "method": cfg.method, "repack": cfg.repack,
+            "wall_ms": seconds * 1e3, "submit_ms": submit_s * 1e3,
+            "drain_ms": drain_s * 1e3, "graphs_per_s": len(reqs) / seconds,
+            "batches": srv.stats["batches"] - batches0,
+            "plan_cache_hits": cache["hits"] - cache0["hits"],
+            "plan_cache_misses": cache["misses"] - cache0["misses"],
+            "latency_by_bucket": _latency_by_bucket(futs),
+            "rung_histogram": rungs,
+            "launches": {k: counts[k] for k in launches},
+            "parity_rows": _served_parity(srv, dev),
+            "cpu_parity_rows": _cpu_parity(srv)}
+        check(out[label]["parity_rows"] == len(reqs),
+              f"serve_topo {label}: not every request was served")
+        if bare is None:
+            bare = (reqs, cfg, seconds)
+    check(phase_counts["kcore_peel"] > 0 and phase_counts["domination"] > 0
+          and phase_counts["gf2_reduce"] > 0,
+          "serve_topo: a main-path kernel was never launched")
+    out["launches"] = _add_counts(launches, phase_counts)
+    return out, bare
+
+
+def _http_get(url):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=30) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def phase_serve_watched(dev, launches, recorder, reqs, cfg, bare_s) -> dict:
+    """The serve_topo round behind the TopoWatch layer: the default serving
+    SLOs installed, the scrape exporter on 127.0.0.1 and ``serve_forever``
+    draining on its own thread while this thread submits; one scrape of
+    /metrics, /healthz, /readyz and /slo, each status 200 with its keys;
+    ``watch_overhead_pct`` against the bare round."""
+    import gc
+    import threading
+
+    from repro_torch import obs
+    from repro_torch.obs import slo
+    from repro_torch.serve import TopoServe
+
+    engine = slo.SLOEngine(slo.default_serve_slos())
+    prev = slo.install(engine)
+    http = obs.start_http_server(port=0)
+    srv = TopoServe(cfg)
+    loop = threading.Thread(target=srv.serve_forever, name="serve-watched",
+                            daemon=True)
+    ready = obs.gauge("serve.ready")
+
+    def watched_round():
+        t0 = time.perf_counter()
+        futs = [srv.submit(edges=e, n_vertices=n) for e, n in reqs]
+        for f in futs:
+            f.result(timeout=600)
+        return futs, time.perf_counter() - t0
+
+    scrapes = {}
+    try:
+        loop.start()
+        deadline = time.monotonic() + 120
+        while ready.value(frontend="topo", instance=srv._obs_instance) != 1:
+            check(time.monotonic() < deadline and loop.is_alive(),
+                  "serve_watched: the drain loop never became ready")
+            time.sleep(0.01)
+        watched_round()                      # warm round
+        engine.tick()
+        gc.collect()
+        (futs, wall), counts, _ = _drive(recorder, "serve_watched",
+                                         watched_round)
+        engine.tick()
+        for path, keys in (("/metrics", None),
+                           ("/healthz", {"status", "loops"}),
+                           ("/readyz", {"status", "ready"}),
+                           ("/slo", {"ts", "status", "breaches"})):
+            code, body = _http_get(http.url + path)
+            check(code == 200, f"serve_watched: {path} answered {code}")
+            if keys is None:
+                text = body.decode()
+                check("serve_request_latency_seconds_bucket" in text
+                      and "slo_status" in text,
+                      "serve_watched: /metrics lacks the serving series")
+                scrapes[path] = {"status": code, "bytes": len(body)}
+            else:
+                doc = json.loads(body)
+                check(keys <= set(doc), f"serve_watched: {path} keys "
+                                        f"{sorted(doc)}")
+                scrapes[path] = {"status": code,
+                                 "doc_status": doc.get("status")
+                                 if path != "/slo" else None}
+        verdicts = slo.slo_status(tick=True)
+    finally:
+        srv.stop()
+        loop.join(timeout=60)
+        http.stop()
+        slo.install(prev)
+    check(not loop.is_alive(), "serve_watched: the drain loop did not stop")
+    return {"phase": "serve_watched", "requests": len(reqs),
+            "wall_ms": wall * 1e3, "graphs_per_s": len(reqs) / wall,
+            "bare_wall_ms": bare_s * 1e3,
+            "watch_overhead_pct": 100.0 * (wall - bare_s) / bare_s,
+            "batches": srv.stats["batches"],
+            "latency_by_bucket": _latency_by_bucket(futs),
+            "scrapes": scrapes,
+            "slo_objectives": len(verdicts),
+            "slo_status": {k: v["status"] for k, v in sorted(
+                verdicts.items())},
+            "launches": _add_counts(launches, counts)}
+
+
+def _oracle_w2(index, row, gid):
+    """Hungarian W2 between a query row's compacted cloud and the stored
+    cloud of ``gid`` (``metrics/reference.py``)."""
+    from repro_torch.core.persistence import Diagrams
+    from repro_torch.metrics import compact_top_k, reference
+
+    cfg = index.config
+    b, e, keep = compact_top_k(
+        Diagrams(*(getattr(row, k)[None] for k in ("birth", "death", "dim",
+                                                    "valid"))),
+        cfg.k, cfg.n_points, cfg.cap)
+    p1 = [(x, y) for x, y, kk in zip(b[0].tolist(), e[0].tolist(),
+                                     keep[0].tolist()) if kk]
+    base = getattr(index, "base", index)
+    cl = base._clouds[list(base.ids).index(gid)]
+    p2 = [(x, y) for x, y, kk in zip(*cl.tolist()) if kk > 0]
+    return reference.wasserstein_exact(p1, p2)
+
+
+def phase_serve_similarity_n64(dev, launches, recorder) -> dict:
+    """SimilarityServe over index_n64's index (embedding "both", LSH 128
+    bits, overfetch 8, k 10) with the exact re-rank: 4096 n64 corpus
+    graphs added through ``add``, then 256 queries, drained twice (the
+    second drain warm from the price cache); the same queries through a
+    ``sharded=True`` wrap of the index on ``make_index_mesh()`` (same ids);
+    then ``stage1_backend="exact_w"`` on a 512-graph corpus with 32
+    queries.  64 sampled exact distances within 1e-5 of the Hungarian
+    oracle."""
+    import numpy as np
+
+    from repro_torch.index import TopoIndexConfig
+    from repro_torch.launch import make_index_mesh
+    from repro_torch.serve import SimilarityServe
+
+    corpus = _edge_lists(n64_batch(dev, batch=SERVE_SIM_CORPUS, seed=7))
+    queries = _edge_lists(n64_batch(dev, batch=SERVE_SIM_QUERIES, seed=101))
+    index_cfg = TopoIndexConfig(embedding="both", coarse="lsh")
+    k = 10
+    sim = SimilarityServe(index_config=index_cfg, default_k=k,
+                          rerank="exact_w")
+    for i, (e, n) in enumerate(corpus):
+        sim.add(edges=e, n_vertices=n, gid=f"c{i}")
+    t0 = time.perf_counter()
+    sim.drain()
+    add_s = time.perf_counter() - t0
+    check(len(sim.index) == len(corpus), "serve_similarity_n64: adds lost")
+
+    def query_round(server, qs):
+        futs = [server.submit(edges=e, n_vertices=n) for e, n in qs]
+        server.drain()
+        return [f.result(timeout=0) for f in futs]
+
+    phase_counts = {kk: 0 for kk in launches}
+    runs = {}
+    res = None
+    for label in ("cold", "warm"):
+        st0 = sim.stats
+        got, counts, seconds = _drive(recorder, "serve_similarity_n64",
+                                      query_round, sim, queries)
+        for kk in launches:
+            phase_counts[kk] += counts[kk]
+        st = sim.stats
+        runs[label] = {
+            "query_ms": seconds * 1e3,
+            "stage1_ms": (st["stage1_s"] - st0["stage1_s"]) * 1e3,
+            "stage2_ms": (st["stage2_s"] - st0["stage2_s"]) * 1e3,
+            "stage1_candidates": st["stage1_candidates"]
+            - st0["stage1_candidates"],
+            "stage2_pairs": st["stage2_pairs"] - st0["stage2_pairs"],
+            "auction_rounds": st["auction_rounds"] - st0["auction_rounds"],
+            # the price cache counts in repro_torch.counters, which _drive
+            # set to 0 just before this run
+            "warm_start_hits": st["warm_start_hits"],
+            "warm_start_misses": st["warm_start_misses"]}
+        if res is None:
+            res = got
+        else:
+            check([r.ids for r in got] == [r.ids for r in res],
+                  "serve_similarity_n64: the warm drain changed the ids")
+
+    sharded = SimilarityServe(index=sim.index, default_k=k, rerank="exact_w",
+                              sharded=True, index_mesh=make_index_mesh())
+    got_sh, counts, seconds = _drive(recorder, "serve_similarity_n64",
+                                     query_round, sharded, queries)
+    for kk in launches:
+        phase_counts[kk] += counts[kk]
+    check([r.ids for r in got_sh] == [r.ids for r in res],
+          "serve_similarity_n64: sharded and single-host ids differ")
+    sh_err = max(abs(a - b) for r, r2 in zip(got_sh, res)
+                 for a, b in zip(r.distances, r2.distances))
+    runs["sharded"] = {"query_ms": seconds * 1e3,
+                       "shards": sharded.index.n_shards,
+                       "max_abs_diff_vs_single_host": sh_err}
+
+    n_ex, q_ex = SERVE_SIM_EXACT
+    exact = SimilarityServe(index_config=index_cfg, default_k=k,
+                            stage1_backend="exact_w")
+    for i, (e, n) in enumerate(corpus[:n_ex]):
+        exact.add(edges=e, n_vertices=n, gid=f"c{i}")
+    exact.drain()
+    res_ex, counts, seconds = _drive(recorder, "serve_similarity_n64",
+                                     query_round, exact, queries[:q_ex])
+    for kk in launches:
+        phase_counts[kk] += counts[kk]
+    st = exact.stats
+    runs["stage1_exact"] = {
+        "corpus": n_ex, "queries": q_ex, "query_ms": seconds * 1e3,
+        "stage1_candidates": st["stage1_candidates"],
+        "auction_rounds": st["auction_rounds"]}
+
+    rng = np.random.default_rng(SERVE_ORACLE_SEED)
+    err = 0.0
+    for server, results in ((sim, res), (exact, res_ex)):
+        picks = rng.choice(len(results) * k, SERVE_ORACLE_SAMPLES // 2,
+                           replace=False)
+        for p in picks.tolist():
+            r = results[p // k]
+            want = _oracle_w2(server.index, r.diagrams, r.ids[p % k])
+            err = max(err, abs(r.distances[p % k] - want))
+    check(err <= EX_ATOL, f"serve_similarity_n64: an exact distance is "
+                          f"{err} from the Hungarian oracle")
+    for name in ("pairwise_l1", "auction_lap_collapsed", "hamming_scan",
+                 "domination", "gf2_reduce"):
+        check(phase_counts[name] > 0,
+              f"serve_similarity_n64: {name} was never launched")
+    return {"phase": "serve_similarity_n64", "corpus": len(corpus),
+            "queries": len(queries), "k": k,
+            "index": {"embedding": index_cfg.embedding,
+                      "coarse": index_cfg.coarse,
+                      "lsh_bits": index_cfg.lsh_bits,
+                      "lsh_overfetch": index_cfg.lsh_overfetch,
+                      "rerank_overfetch": sim.overfetch},
+            "add_ms": add_s * 1e3, **runs,
+            "oracle_samples": SERVE_ORACLE_SAMPLES,
+            "oracle_max_abs_err": err,
+            "launches": _add_counts(launches, phase_counts)}
+
+
+def phase_serve_stream(dev, launches, recorder) -> dict:
+    """StreamServe with 4 sessions of the ego-decay stream (1024 graphs of
+    n_pad 64 each), 16 steps each, all submitted and then drained; each
+    step's Diagrams bitwise a direct TopoStream fed the same deltas."""
+    from repro_torch.core.delta import delta_step
+    from repro_torch.data.temporal import ego_decay_stream
+    from repro_torch.serve import StreamServe
+    from repro_torch.stream import TopoStream, TopoStreamConfig
+
+    n_sessions, graphs, steps = SERVE_STREAM
+    ego = dict(STREAM_EGO, steps=steps)
+    cfg = TopoStreamConfig(**STREAM_EGO_CFG)
+    streams = [ego_decay_stream(51 + s, graphs, 64, **ego, device=dev)
+               for s in range(n_sessions)]
+    srv = StreamServe(cfg)
+    sids = [srv.create_session(g0) for g0, _ in streams]
+
+    def run():
+        futs = [[srv.submit(sid, delta_step(ds, t)) for t in range(steps)]
+                for sid, (_, ds) in zip(sids, streams)]
+        return futs, srv.drain()
+
+    (futs, applied), counts, seconds = _drive(recorder, "serve_stream", run)
+    check(applied == n_sessions * steps, "serve_stream: steps not applied")
+    for (g0, ds), sfuts in zip(streams, futs):
+        direct = TopoStream(g0, cfg)
+        for t, f in enumerate(sfuts):
+            before = dict(direct.stats)
+            d = direct.apply(delta_step(ds, t))
+            check(_diagrams_bitwise(f.result(timeout=0), d),
+                  f"serve_stream step {t}: served Diagrams differ from a "
+                  "direct TopoStream")
+            check(f.info["graph_updates"] == direct.stats["graph_updates"]
+                  - before["graph_updates"] and f.info["hits"]
+                  == direct.stats["hits"] - before["hits"],
+                  f"serve_stream step {t}: step info differs")
+    st = srv.stats()
+    return {"phase": "serve_stream", "sessions": n_sessions,
+            "graphs_per_session": graphs, "n_pad": 64, "steps": steps,
+            "config": STREAM_EGO_CFG, "graph_updates": st["graph_updates"],
+            "skip_rate": st["skip_rate"], "recomputes": st["recomputes"],
+            "drain_ms": seconds * 1e3,
+            "updates_per_s": st["graph_updates"] / seconds,
+            "parity_steps": n_sessions * steps,
+            "launches": _add_counts(launches, counts)}
+
+
 def _profile_stream_step(name, stream, deltas, t) -> dict:
     """``_profile`` of step ``t`` applied to copies of ``stream``'s state,
     which must be the state before step ``t`` (the stream itself is left
@@ -3036,6 +3537,13 @@ def main() -> int:
                      for n in stream.recompute_sizes}
             check(len(sizes) >= 3, f"the stream phases recomputed at only "
                                    f"{sorted(sizes)} graphs a batch")
+            record, (reqs, serve_cfg, bare_s) = phase_serve_topo(
+                dev, launches, recorder)
+            emit(record)
+            emit(phase_serve_watched(dev, launches, recorder, reqs,
+                                     serve_cfg, bare_s))
+            emit(phase_serve_similarity_n64(dev, launches, recorder))
+            emit(phase_serve_stream(dev, launches, recorder))
         finally:
             Recorder.uninstall(originals)
         emit(phase_profile(n64, N64_CAPS))
@@ -3055,7 +3563,9 @@ def main() -> int:
                          "clustering_twitter", "fig2", "sinkhorn_n64",
                          "sinkhorn_parity", "exact_n64",
                          "strong_collapse_table3", "ego_fig5b",
-                         "stream_ego_decay_n64", "stream_churn_n64")}
+                         "stream_ego_decay_n64", "stream_churn_n64",
+                         "serve_topo", "serve_watched",
+                         "serve_similarity_n64", "serve_stream")}
         # the 65,536-row Gram is index_n64's 256-fold: its plain version
         # and cdist would take minutes, so only the scan is timed there
         at["sharded_index_n65536"] = kernel_rows(

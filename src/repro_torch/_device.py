@@ -1,6 +1,8 @@
 """Device resolution for entry points that create tensors."""
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -18,3 +20,11 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch path")
     return torch.device("cuda")
+
+
+def device_context(device: torch.device):
+    """``torch.cuda.device(device)`` on CUDA, a no-op context elsewhere: a
+    serving thread enters it so its launches go to its server's card."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

@@ -141,6 +141,10 @@ class RepackReport:
     n_edges: np.ndarray
     n_triangles: np.ndarray
 
+    def shape_class(self, i: int) -> ShapeClass:
+        """The persist rung graph ``i`` was repacked into."""
+        return self.ladder[int(self.class_index[i])]
+
     def rung_histogram(self) -> dict[int, int]:
         """{rung n_pad: graph count} over the batch."""
         out: dict[int, int] = {}

@@ -1,5 +1,5 @@
-"""TopoScope and TopoWatch's core: metrics, tracing, request context and the
-flight recorder (the port's own copy of ``repro.obs``'s core).
+"""TopoScope + TopoWatch: tracing, metrics, SLOs, and serving health (the
+port's own copy of ``repro.obs``).
 
 - **Metrics registry** (:mod:`repro_torch.obs.metrics`) — process-wide
   thread-safe counters/gauges/histograms, always live.
@@ -11,11 +11,21 @@ flight recorder (the port's own copy of ``repro.obs``'s core).
 - **Request context** (:mod:`repro_torch.obs.context`) — contextvars-scoped
   request ids + absolute deadlines, propagated into spans.
 - **Flight recorder** (:mod:`repro_torch.obs.flight`) — always-on bounded
-  ring of recent events, dumped to ``results/obs/FLIGHT_<rev>.json``.
+  ring of recent events, dumped to ``results/obs/FLIGHT_<rev>.json`` with
+  the metrics snapshot and the SLO verdicts.
+- **Export** (:mod:`repro_torch.obs.export`) — Prometheus text and
+  JSON-lines snapshots.
+- **SLO engine** (:mod:`repro_torch.obs.slo`) — declarative latency/error/
+  skip-rate/recall objectives evaluated by multi-window burn-rate rules
+  over registry snapshots.
+- **Scrape endpoints** (:mod:`repro_torch.obs.http`) — dependency-free
+  ``/metrics``, ``/healthz``, ``/readyz``, ``/varz``, ``/slo``,
+  ``/debug/flight`` HTTP server, bound to ``127.0.0.1`` by default.
 
-The exporters, the HTTP endpoints, the SLO engine and the trace report come
-with the serving layers.  ``repro_torch.counters`` (kernel launches, loop
-rounds) is separate and stays as it is.
+The trace report (``repro.obs.report``, which reads PerfGate's cost
+cells) and the ``python -m repro.obs`` CLI that imports it are not ported.
+``repro_torch.counters`` (kernel launches, loop rounds) is separate and
+stays as it is.
 
 Typical instrumentation site::
 
@@ -64,18 +74,37 @@ from .trace import (
     span,
     trace_events,
 )
+from .export import (
+    append_jsonl,
+    export_prometheus,
+    prometheus_text,
+    snapshot,
+)
+from .http import ObsHTTPServer, start_http_server
+from .slo import (
+    BurnRule,
+    SLOEngine,
+    SLOSpec,
+    default_serve_slos,
+    slo_status,
+)
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "Span",
     "DEFAULT_TIME_BUCKETS", "DEFAULT_RATIO_BUCKETS",
     "bucket_quantile", "bucket_count_over",
     "default_registry", "next_instance",
-    "counter", "gauge", "histogram", "get_instrument", "snapshot",
+    "counter", "gauge", "histogram", "get_instrument",
     "configure", "enabled", "span", "current_span",
     "trace_events", "clear_trace", "dropped_events",
-    "export_chrome_trace", "reset", "flight",
+    "export_chrome_trace", "export_prometheus", "prometheus_text",
+    "snapshot", "append_jsonl", "reset", "flight",
+    # TopoWatch
     "DeadlineExceeded", "RequestContext", "request_context",
     "new_request_id", "current_request_id", "resolve_submit",
+    "BurnRule", "SLOEngine", "SLOSpec", "default_serve_slos",
+    "slo_status",
+    "ObsHTTPServer", "start_http_server",
 ]
 
 
@@ -95,11 +124,6 @@ def histogram(name: str, help: str = "",
 
 def get_instrument(name: str):
     return default_registry().get(name)
-
-
-def snapshot() -> dict:
-    """JSON-ready snapshot of every instrument in the default registry."""
-    return default_registry().snapshot()
 
 
 def reset() -> None:

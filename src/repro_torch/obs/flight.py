@@ -9,10 +9,10 @@ feed from the serving hot path: each thread appends to its own
 matter how long the process runs.
 
 ``record(kind, name, **attrs)`` is called from completed spans when
-tracing happens to be on (and, once the serving layers are ported, from
-their drain loops), so when something goes wrong the last ~512 events per
-thread are already in memory.  ``dump(reason)`` writes them (plus a full
-metrics snapshot; ``"slo"`` is null until the SLO engine is ported) to
+tracing happens to be on, from the serving layers' drain loops, and from
+the SLO engine's verdict transitions, so when something goes wrong the
+last ~512 events per thread are already in memory.  ``dump(reason)``
+writes them (plus a full metrics snapshot and the SLO verdict block) to
 ``results/obs/FLIGHT_<rev>.json``; ``auto_dump`` is the rate-limited
 variant for automatic triggers.
 """
@@ -142,24 +142,28 @@ def _git_rev() -> str:
 
 def dump(reason: str, path: Optional[str] = None,
          extra: Optional[dict] = None) -> str:
-    """Write the flight buffer + metrics snapshot to disk.
+    """Write the flight buffer + metrics snapshot + SLO verdicts to disk.
 
     Default path is ``<dump_dir>/FLIGHT_<rev>.json`` — one post-mortem
     per revision, overwritten by later incidents (the newest state is the
     one a responder wants; CI uploads it as an artifact per run).
     """
     global _LAST_DUMP_PATH
-    from .metrics import default_registry
+    from .export import snapshot  # lazy: flight must import before export
 
+    try:  # lazy + guarded: slo imports flight for its breach callback
+        from . import slo as _slo
+        slo_block = _slo.verdict_block()
+    except Exception:
+        slo_block = None
     doc = {
         "schema": 1,
         "reason": reason,
         "ts": time.time(),
         "git_rev": _git_rev(),
         "events": events(),
-        "metrics": default_registry().snapshot(),
-        # the SLO engine comes with the serving layers; no verdicts yet
-        "slo": None,
+        "metrics": snapshot(),
+        "slo": slo_block,
     }
     if extra:
         doc["extra"] = extra

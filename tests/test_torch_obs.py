@@ -422,6 +422,7 @@ def test_flight_ring_bounded_and_ordered():
 
 
 def test_flight_dump_roundtrip(tmp_path):
+    obs.reset()  # no breach counted by earlier tests in this process
     flight.record("test", "dump-probe", answer=42, obj=object())
     path = flight.dump("unit-test", path=str(tmp_path / "FLIGHT_t.json"))
     assert flight.last_dump_path() == path
@@ -431,7 +432,39 @@ def test_flight_dump_roundtrip(tmp_path):
     assert doc["reason"] == "unit-test"
     assert any(e["name"] == "dump-probe" and e["attrs"]["answer"] == 42
                for e in doc["events"])
-    assert "metrics" in doc and doc["slo"] is None
+    assert set(doc["metrics"]) == set(obs.snapshot())
+    # no SLO engine installed: the verdict block says so
+    assert doc["slo"] == {"installed": False, "status": {},
+                          "breaches_total": 0, "breaches_by_slo": {}}
+
+
+def test_flight_dump_carries_the_installed_slo_engine(tmp_path):
+    from repro_torch.obs import slo
+
+    obs.reset()
+    reg = MetricsRegistry()
+    bad, total = reg.counter("t.bad"), reg.counter("t.total")
+    engine = slo.SLOEngine(
+        [slo.SLOSpec(name="t-err", kind="error_rate", bad="t.bad",
+                     total="t.total", budget=0.01,
+                     rules=(slo.BurnRule(long_s=10.0, short_s=5.0),))],
+        registry=reg, on_breach=lambda name, v: None)
+    prev = slo.install(engine)
+    try:
+        engine.tick(now=0.0)
+        total.inc(100)
+        bad.inc(50)
+        assert engine.tick(now=1.0)["t-err"]["status"] == "breach"
+        path = flight.dump("slo-test", path=str(tmp_path / "FLIGHT_s.json"))
+    finally:
+        slo.install(prev)
+        obs.reset()
+    with open(path) as fh:
+        block = json.load(fh)["slo"]
+    assert block["installed"] is True
+    assert block["status"]["t-err"]["status"] == "breach"
+    assert block["breaches_total"] == 1
+    assert block["breaches_by_slo"] == {"t-err": 1}
 
 
 def test_flight_auto_dump_rate_limited(tmp_path):
