@@ -6,7 +6,7 @@
 Builds the ten hand-written kernels from the eight sources in
 ``src/repro_torch/csrc`` (one nvcc per source, in parallel), holds each
 kernel against its plain PyTorch version on the card, then drives the
-port's eight paths:
+port's nine paths:
 
 * reduce -> repack -> persist through ``make_topo_plan`` at three sizes: the
   n64 serve rung (4096 graphs), the DD rung of Table 2 (256 graphs of 320
@@ -15,15 +15,18 @@ port's eight paths:
   common-neighbors kernel's fused row-sum epilogue) on the n64 batch, on
   Table 1's batch and on the TWITTER surrogate;
   a TopoIndex over the n64 diagrams (embedding, the pairwise-L1 Gram,
-  kNN queries without and with the LSH stage, a save/load round trip); and
+  kNN queries without and with the LSH stage, whose coarse scan is one
+  ``hamming_scan`` launch, a save/load round trip); and
   the three probes of ``benchmarks/fig2_clustering.py``, whose persistence-
   kernel clustering must reach purity and accuracy >= 0.66;
 * retrieval through a ShardedIndex (the ``hamming_scan`` kernel): the LSH
   index of the n64 diagrams wrapped on the mesh (1, 1) and on a 4-shard
   mesh that repeats the one card, and a 65,536-row corpus of noisy copies
   on the mesh (1, 1); candidates, answers and gathered clouds bitwise the
-  single-host index's (whose coarse stage scans on the host), the SUMMA
-  Gram within the pairwise-L1 tolerance;
+  single-host index's (whose coarse stage runs the same device scan), the
+  candidates and the single-host answers also bitwise those of the host
+  numpy scan over host copies of the same codes, the SUMMA Gram within the
+  pairwise-L1 tolerance;
 * the entropic Sinkhorn-W2 path of the MetricEngine: 2048 row-aligned n64
   pairs through ``compare(metric="sinkhorn")``, dense and blocked (the
   ``sinkhorn_lse`` and ``sinkhorn_pair_sum`` kernels); the DD rung's
@@ -60,7 +63,12 @@ port's eight paths:
   graphs, 256 queries; sharded on ``make_index_mesh()``; the exact stage 1
   on 512 graphs; 64 sampled distances against the Hungarian oracle), and
   StreamServe with four ego-decay sessions of 1024 graphs, every step
-  bitwise a direct TopoStream.
+  bitwise a direct TopoStream;
+* the trace report: one step of each path above with tracing on, the
+  Chrome trace through ``python -m repro_torch.obs report`` (a subprocess),
+  every launched kernel's ``kernels.*`` rows holding its launch count and
+  a cost cell of the card; ``python -m repro_torch.obs slo check`` also
+  runs against the exporter of the watched round.
 
 CUDA results are compared with the same functions run on the CPU: bitwise
 where the computation is exact, within a stated tolerance where float sums
@@ -95,17 +103,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and one 32-bit
-# instruction per CUDA-core lane per clock (132 SMs x 128 lanes x 1.98 GHz;
-# the data sheet's 67 TFLOP/s f32 counts an FMA as two), the rate of the
-# kernels' integer word ops and non-FMA f32 ops
-HBM_BYTES_PER_S = 3.35e12
-LANE_OPS_PER_S = 33.5e12
-# the multi-function units (ex2, lg2, rcp): 16 per SM per clock on Hopper;
-# popcounts run at the same rate
-MUFU_OPS_PER_S = 16 * 132 * 1.98e9
-# int8 tensor-core operations a second, dense (an FMA counts as two)
-INT8_TC_OPS_PER_S = 1979e12
+# The card's peaks and every kernel row's bound come from
+# repro_torch.launch.roofline (imported where used: src/ joins sys.path in
+# main).
 # one dependent shared-memory load on Hopper, assumed: ~30 cycles at the
 # 1.98 GHz boost clock (the gf2 chain floor's unit)
 SMEM_ROUND_TRIP_NS = 30 / 1.98
@@ -293,16 +293,6 @@ def l1_tolerance(x, y):
     D nonnegative terms in another order (L1_TOLERANCE)."""
     return (1e-5 * (x.abs().sum(1)[:, None] + y.abs().sum(1)[None, :])
             + 1e-6)
-
-
-def bound(bytes_moved: float, ops: float,
-          mufu_ops: float = 0.0) -> tuple[float, str]:
-    """Least time in ms the card could take, and what bounds it: the bytes,
-    or the lane instructions or multi-function-unit operations, whichever
-    takes longer ("operations" for either of the two)."""
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = max(ops / LANE_OPS_PER_S, mufu_ops / MUFU_OPS_PER_S) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def sinkhorn_error(got, want, rtol=SK_RTOL,
@@ -1150,8 +1140,9 @@ def phase_index(d64, dev, launches, recorder, n_queries=256, k=10,
                 n_cpu_rows=512) -> dict:
     """TopoIndex(embedding="both") at the default widths over the n64
     diagrams: add, the 4096 x 4096 Gram, k-NN queries without and with the
-    LSH stage, and a save/load round trip, each held against the CPU port
-    (the Gram on a slice of ``n_cpu_rows`` rows)."""
+    LSH stage (its coarse scan one ``hamming_scan`` launch), and a
+    save/load round trip, each held against the CPU port (the Gram on a
+    slice of ``n_cpu_rows`` rows)."""
     import dataclasses
 
     import numpy as np
@@ -1177,6 +1168,9 @@ def phase_index(d64, dev, launches, recorder, n_queries=256, k=10,
     out = {"phase": "index_n64", "rows": len(index), "width": cfg.width,
            "queries": n_queries, "k": k, "first_run_ms": first_s * 1e3,
            "launches": _add_counts(launches, counts)}
+    check(counts["hamming_scan"] == 1,
+          f"index_n64: the LSH query launched hamming_scan "
+          f"{counts['hamming_scan']} times, not once")
     check(bool(torch.isfinite(gram).all()) and not bool(gram.diagonal().any()),
           "index_n64: Gram not finite or its diagonal not 0")
 
@@ -1219,8 +1213,9 @@ def phase_index(d64, dev, launches, recorder, n_queries=256, k=10,
         path.unlink(missing_ok=True)
     q2 = loaded.query(dq, k)
     check(q2.ids == q_lsh.ids and np.array_equal(q2.distances, q_lsh.distances)
-          and np.array_equal(loaded._codes, index_lsh._codes),
-          "index_n64: save/load changed the answers")
+          and np.array_equal(loaded._codes, index_lsh._codes)
+          and torch.equal(loaded._device_codes(), index_lsh._device_codes()),
+          "index_n64: save/load changed the answers or the device codes")
     out.update(
         embeddings_bitwise_equal_share=float(
             (index._emb == cpu._emb).mean()),
@@ -1253,6 +1248,55 @@ def _gram_against_one_call(gram, emb, chunk=8192):
     return err, ok, same
 
 
+def _host_candidates(index, emb_q_np, m, probes=None):
+    """The host numpy scan of ``repro``'s single-host index over host copies
+    of ``index``'s codes: (Q, m) rows by (distance, row)."""
+    from repro_torch.index.topo_index import host_scan
+
+    codes_q, mask_q = index._query_codes(emb_q_np, probes)
+    return host_scan(codes_q, index._codes, mask_q, m)
+
+
+def _single_host_lsh(index_lsh, dq, k, emb_q, emb_q_np, host_reps):
+    """The single-host index's LSH query on the card (its coarse stage the
+    ``hamming_scan`` kernel): candidates (probes 1 and 4) bitwise the host
+    numpy scan's on host copies of the same codes, and its ids and
+    distances bitwise a query ranked from the host scan's candidates; the
+    query and coarse times of both routes."""
+    import numpy as np
+
+    m = k * index_lsh.config.lsh_overfetch
+    for probes in (1, 4):
+        check(np.array_equal(
+            index_lsh._coarse_candidates(emb_q_np, m * probes, probes),
+            _host_candidates(index_lsh, emb_q_np, m * probes, probes)),
+            f"single-host index, probes {probes}: the device scan's "
+            "candidates differ from the host scan's")
+    got = index_lsh.query(dq, k)
+
+    def host_query():
+        return index_lsh._rank_candidates(
+            emb_q, _host_candidates(index_lsh, emb_q_np, m), k)
+
+    dist, rows = host_query()
+    check(np.array_equal(np.asarray(got.rows), rows)
+          and np.array_equal(got.distances, dist),
+          "single-host index: the device-scan query's answers differ from "
+          "the host scan's")
+    return got, {
+        "query_lsh_ms": _host_ms(lambda: index_lsh.query(dq, k),
+                                 reps=host_reps),
+        "coarse_ms": _host_ms(
+            lambda: index_lsh._coarse_candidates(emb_q_np, m),
+            reps=host_reps),
+        "host_scan_query_lsh_ms": _host_ms(host_query, reps=host_reps),
+        "host_scan_ms": _host_ms(
+            lambda: _host_candidates(index_lsh, emb_q_np, m),
+            reps=host_reps),
+        "candidates_bitwise_host_scan": True,
+        "query_bitwise_host_scan": True}
+
+
 def phase_sharded_index(name, index_lsh, dq, k, meshes, launches, recorder,
                         index_none=None, host_reps=3) -> tuple[dict, object]:
     """``index_lsh`` wrapped in a ShardedIndex on each of ``meshes``: one
@@ -1260,11 +1304,12 @@ def phase_sharded_index(name, index_lsh, dq, k, meshes, launches, recorder,
     coarse candidates (probes 1 and 4) bitwise the host scan's, the query
     ids and distances bitwise ``index_lsh.query``'s, the clouds bitwise
     ``index_lsh.clouds``', the SUMMA Gram and the SUMMA query Gram within
-    L1_TOLERANCE; and the sharded LSH query's time beside the host scan's.
-    ``index_none``, where given, is the same corpus without the LSH stage:
-    its sharded query goes through the SUMMA Gram and must name the same
-    rows but for near ties.  Returns the record and the first sharded
-    index."""
+    L1_TOLERANCE; and the sharded LSH query's time beside the single-host
+    index's (``_single_host_lsh``: on the kernel, and from the host numpy
+    scan).  ``index_none``, where given, is the same corpus without the
+    LSH stage: its sharded query goes through the SUMMA Gram and must name
+    the same rows but for near ties.  Returns the record and the first
+    sharded index."""
     import numpy as np
     from repro_torch.core.persistence import diagrams_bitwise_equal
     from repro_torch.index import ShardedIndex
@@ -1276,7 +1321,8 @@ def phase_sharded_index(name, index_lsh, dq, k, meshes, launches, recorder,
     emb_q_np = emb_q.cpu().numpy()
     m = k * cfg.lsh_overfetch
     rows = np.random.default_rng(CLOUD_ROWS_SEED).integers(0, n, (64, k))
-    want = index_lsh.query(dq, k)
+    want, single = _single_host_lsh(index_lsh, dq, k, emb_q, emb_q_np,
+                                    host_reps)
     want_clouds = index_lsh.clouds(rows)
     e = index_lsh._emb_device
     q_dist = ops.pairwise_l1(emb_q, e)
@@ -1284,12 +1330,7 @@ def phase_sharded_index(name, index_lsh, dq, k, meshes, launches, recorder,
     out = {"phase": name, "rows": n, "width": cfg.width,
            "queries": emb_q.shape[0], "k": k, "lsh_bits": cfg.lsh_bits,
            "coarse_candidates": m, "l1_tolerance": L1_TOLERANCE,
-           "host_query_lsh_ms": _host_ms(lambda: index_lsh.query(dq, k),
-                                         reps=host_reps),
-           "host_coarse_ms": _host_ms(
-               lambda: index_lsh._coarse_candidates(emb_q_np, m),
-               reps=host_reps),
-           "meshes": []}
+           "single_host": single, "meshes": []}
     first = None
     for mesh in meshes:
         sharded = ShardedIndex.from_index(index_lsh, mesh=mesh)
@@ -1311,8 +1352,8 @@ def phase_sharded_index(name, index_lsh, dq, k, meshes, launches, recorder,
               f"{tag}: gathered clouds differ")
         for probes in (1, 4):
             cand = sharded._coarse_candidates(emb_q_np, m * probes, probes)
-            check(np.array_equal(cand, index_lsh._coarse_candidates(
-                emb_q_np, m * probes, probes)),
+            check(np.array_equal(cand, _host_candidates(
+                index_lsh, emb_q_np, m * probes, probes)),
                 f"{tag}: probes {probes}: candidates differ from the host "
                 "scan's")
         gram_err, gram_ok, gram_bitwise = _gram_against_one_call(gram, e)
@@ -2491,6 +2532,39 @@ def _http_get(url):
         return e.code, e.read()
 
 
+def _cli_env() -> dict:
+    """The environment of a ``python -m repro_torch.obs`` subprocess: this
+    checkout's ``src`` first on PYTHONPATH."""
+    import os
+
+    path = os.environ.get("PYTHONPATH")
+    return dict(os.environ, PYTHONPATH=str(ROOT / "src")
+                + (os.pathsep + path if path else ""))
+
+
+def _slo_check_cli(url) -> dict:
+    """``python -m repro_torch.obs slo check --url`` against a live
+    exporter: its exit code must be 1 where the verdict block it printed
+    shows a breach, else 0."""
+    import re
+
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs", "slo", "check", "--url",
+         url], capture_output=True, text=True, timeout=300, env=_cli_env())
+    printed = {}
+    for line in out.stdout.splitlines():
+        hit = re.match(r"^ +(ok|breach|no_data|\?) {2}(\S+)", line)
+        if hit:
+            printed[hit.group(2)] = hit.group(1)
+    breach = "breach" in printed.values()
+    check(bool(printed) and out.returncode == (1 if breach else 0),
+          f"serve_watched: slo check exited {out.returncode} on "
+          f"{printed}: {out.stdout[-400:]} {out.stderr[-400:]}")
+    return {"exit_code": out.returncode, "printed": printed,
+            "breached": sorted(k for k, v in printed.items()
+                               if v == "breach")}
+
+
 def phase_serve_watched(dev, launches, recorder, reqs, cfg, bare_s) -> dict:
     """The serve_topo round behind the TopoWatch layer: the default serving
     SLOs installed, the scrape exporter on 127.0.0.1 and ``serve_forever``
@@ -2553,12 +2627,16 @@ def phase_serve_watched(dev, launches, recorder, reqs, cfg, bare_s) -> dict:
                                  "doc_status": doc.get("status")
                                  if path != "/slo" else None}
         verdicts = slo.slo_status(tick=True)
+        slo_check = _slo_check_cli(http.url)
     finally:
         srv.stop()
         loop.join(timeout=60)
         http.stop()
         slo.install(prev)
     check(not loop.is_alive(), "serve_watched: the drain loop did not stop")
+    check(set(slo_check["printed"]) == set(verdicts),
+          f"serve_watched: slo check printed {sorted(slo_check['printed'])}"
+          f", the engine holds {sorted(verdicts)}")
     return {"phase": "serve_watched", "requests": len(reqs),
             "wall_ms": wall * 1e3, "graphs_per_s": len(reqs) / wall,
             "bare_wall_ms": bare_s * 1e3,
@@ -2566,7 +2644,7 @@ def phase_serve_watched(dev, launches, recorder, reqs, cfg, bare_s) -> dict:
             "batches": srv.stats["batches"],
             "latency_by_bucket": _latency_by_bucket(futs),
             "scrapes": scrapes,
-            "slo_objectives": len(verdicts),
+            "slo_objectives": len(verdicts), "slo_check_cli": slo_check,
             "slo_status": {k: v["status"] for k, v in sorted(
                 verdicts.items())},
             "launches": _add_counts(launches, counts)}
@@ -2757,6 +2835,128 @@ def phase_serve_stream(dev, launches, recorder) -> dict:
             "launches": _add_counts(launches, counts)}
 
 
+def _kernel_key(span: str) -> str:
+    """The ``counters.KERNEL_LAUNCHES`` key of a ``kernels.*`` span."""
+    name = span.split(".", 1)[1]
+    return "gf2_reduce" if name == "gf2_reduce_batch" else name
+
+
+def phase_trace_report(g64, d64, index_run, dev, top=25) -> dict:
+    """The port's trace-report path: with tracing on, one step each of the
+    main paths (a ``signature_n64`` execution, one ``ops.gf2_reduce`` on a
+    single block, an n64 clustering call, a blocked ``sinkhorn_n64``
+    compare, ``exact_n64`` compares collapsed and with ``collapse="off"``,
+    and an LSH ``index_n64`` query), each in a ``chip_smoke.<step>`` span
+    whose self-time is its host work outside the kernel wrappers.  The
+    Chrome trace goes through ``python -m repro_torch.obs report`` (exit 0,
+    its table printed); every kernel launched in the window has
+    ``kernels.*`` rows whose calls equal its ``KERNEL_LAUNCHES`` delta and
+    its ``kernels.calls`` delta; the summed self-times stay within the
+    trace's wall; every mapped kernel row carries a modeled cost cell.
+    Kernel spans time the host wrapper around an asynchronous launch, not
+    the device."""
+    import os
+    import tempfile
+
+    import torch
+    from repro_torch import counters, obs
+    from repro_torch.core.api import make_topo_plan
+    from repro_torch.kernels import ops
+    from repro_torch.metrics import compare, compare_info
+    from repro_torch.obs.report import KERNEL_CELLS, aggregate, load_trace
+
+    _, index_lsh, dq, k = index_run
+    plan = make_topo_plan(dim=1, method="both", repack="on", **N64_CAPS)
+    block = _bit31_blocks(1, 128, 128, 5, dev)[0]
+    d1, d2 = _rows(d64, slice(0, None, 2)), _rows(d64, slice(1, None, 2))
+    steps = (
+        ("signature_n64", lambda: plan.execute(g64)),
+        ("gf2_reduce", lambda: ops.gf2_reduce(block)),
+        ("clustering_n64",
+         lambda: ops.clustering_coefficients(g64.adj, g64.mask)),
+        ("sinkhorn_n64",
+         lambda: compare(d1, d2, metric="sinkhorn", impl="blocked")),
+        ("exact_n64", lambda: compare(d1, d2, metric="exact_w")),
+        ("exact_n64_off",
+         lambda: compare_info(d1, d2, metric="exact_w", collapse="off")),
+        ("index_n64", lambda: index_lsh.query(dq, k)))
+    calls = obs.get_instrument("kernels.calls")
+    before = calls.labeled("kernel")
+    torch.cuda.synchronize()
+    was = obs.enabled()
+    obs.configure(enabled=True)
+    obs.clear_trace()
+    counters.reset()
+    try:
+        t0 = time.perf_counter()
+        for name, fn in steps:
+            with obs.span(f"chip_smoke.{name}"):
+                fn()
+                torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        obs.configure(enabled=was)
+    launches = {k_: v for k_, v in counters.KERNEL_LAUNCHES.items() if v}
+    after = calls.labeled("kernel")
+    labels = {k_: after[k_] - before.get(k_, 0) for k_ in after
+              if after[k_] != before.get(k_, 0)}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        obs.export_chrome_trace(path)
+        obs.clear_trace()
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.obs", "report", path,
+             "--top", str(top)], capture_output=True, text=True,
+            timeout=300, env=_cli_env())
+        events = load_trace(path)
+    check(cli.returncode == 0, f"trace_report: the report CLI exited "
+                               f"{cli.returncode}: {cli.stderr[-600:]}")
+    print(cli.stdout.rstrip(), flush=True)
+    rows = aggregate(events)
+    kernel_rows = [r for r in rows if r["span"].startswith("kernels.")]
+    spans = {}
+    for r in kernel_rows:
+        key = _kernel_key(r["span"])
+        spans[key] = spans.get(key, 0) + r["calls"]
+    by_label = {}
+    for label, n in labels.items():
+        key = _kernel_key("kernels." + label)
+        by_label[key] = by_label.get(key, 0) + int(n)
+    check(sorted(launches) == sorted(REPLACES),
+          f"trace_report: launched only {sorted(launches)}")
+    check({"gf2_reduce", "gf2_reduce_batch"} <= set(labels),
+          f"trace_report: kernels.calls labels {sorted(labels)}")
+    check(spans == launches, f"trace_report: kernel rows' calls {spans} "
+                             f"against launches {launches}")
+    check(by_label == launches, f"trace_report: kernels.calls deltas "
+                                f"{by_label} against launches {launches}")
+    trace_wall_us = (max(e["ts"] + e["dur"] for e in events)
+                     - min(e["ts"] for e in events))
+    self_us = sum(r["self_us"] for r in rows)
+    check(self_us <= trace_wall_us * (1 + 1e-9),
+          f"trace_report: self-times {self_us} us exceed the wall "
+          f"{trace_wall_us} us")
+    unmodeled = [r["span"] for r in kernel_rows if r["span"] in KERNEL_CELLS
+                 and not (r["cost_cell"] or {}).get("modeled")]
+    check(not unmodeled, f"trace_report: rows without a modeled cell "
+                         f"{unmodeled}")
+
+    def brief(r):
+        cell = r["cost_cell"]
+        return {"span": r["span"], "shape": r["shape"], "calls": r["calls"],
+                "total_ms": r["total_us"] / 1e3, "self_ms": r["self_us"] / 1e3,
+                "bound_ms": cell["bound_s"] * 1e3 if cell else None,
+                "bound": cell["bound"] if cell else None}
+
+    return {"phase": "trace_report", "wall_ms": wall_ms,
+            "trace_wall_ms": trace_wall_us / 1e3, "self_ms": self_us / 1e3,
+            "spans": len(events), "rows": len(rows), "launches": launches,
+            "kernels_calls": labels, "report_exit_code": cli.returncode,
+            "note": "kernel spans time the host wrapper around an "
+                    "asynchronous launch, not the device",
+            "top": [brief(r) for r in rows[:top]]}
+
+
 def _profile_stream_step(name, stream, deltas, t) -> dict:
     """``_profile`` of step ``t`` applied to copies of ``stream``'s state,
     which must be the state before step ``t`` (the stream itself is left
@@ -2897,6 +3097,7 @@ def _time_kcore(adj, alive, k, sweeps) -> dict:
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.kcore_peel import cluster_size, kcore_peel_cuda
+    from repro_torch.launch.roofline import bound_ms
 
     b, n = alive.shape
 
@@ -2921,8 +3122,8 @@ def _time_kcore(adj, alive, k, sweeps) -> dict:
     def kernel():
         return kcore_peel_cuda(adj, alive, k, sweeps)
 
-    bt, by = bound(adj.numel() + 2 * alive.numel(),
-                   3.0 * n_sweeps * b * n * ((n + 31) // 32))
+    bt, by = bound_ms(adj.numel() + 2 * alive.numel(),
+                      {"lane": 3.0 * n_sweeps * b * n * ((n + 31) // 32)})
     sms = torch.cuda.get_device_properties(adj.device).multi_processor_count
     return {"name": "kcore_peel", "shape": [b, n, n], "k": k,
             "sweeps_needed": n_sweeps, "cluster": cluster_size(b, n, sms),
@@ -2936,15 +3137,16 @@ def _time_kcore(adj, alive, k, sweeps) -> dict:
 
 def _domination_bounds(b, n) -> dict:
     """The least time any implementation could take, the larger of one
-    read of adj and mask and one write of out at HBM_BYTES_PER_S and the
-    int8 operations of the Gram at INT8_TC_OPS_PER_S: G is symmetric, so
-    a graph needs its N(N+1)/2 distinct inner products of N products
-    each, B*N^2*(N+1) operations with an FMA as two.  Beside it, the
-    popcount floor of a packed AND-NOT form, B*N^2*ceil(N/32) popcounts
-    at MUFU_OPS_PER_S."""
-    t_bytes = (2 * b * n * n + b * n) / HBM_BYTES_PER_S * 1e3
-    t_ops = float(b) * n * n * (n + 1) / INT8_TC_OPS_PER_S * 1e3
-    bt, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    read of adj and mask and one write of out over HBM and the int8
+    operations of the Gram on the tensor cores: G is symmetric, so a graph
+    needs its N(N+1)/2 distinct inner products of N products each,
+    B*N^2*(N+1) operations with an FMA as two.  Beside it, the popcount
+    floor of a packed AND-NOT form, B*N^2*ceil(N/32) popcounts on the
+    multi-function units."""
+    from repro_torch.launch.roofline import MUFU_OPS_PER_S, bound_ms
+
+    bt, by = bound_ms(2 * b * n * n + b * n,
+                      {"int8_tc": float(b) * n * n * (n + 1)})
     return {"bound_ms": bt, "bound_by": by,
             "popcount_floor_ms": b * n * n * ((n + 31) // 32)
             / MUFU_OPS_PER_S * 1e3}
@@ -3019,6 +3221,7 @@ def _time_gf2(blocks, n_rows) -> dict:
     import torch
     from repro_torch.kernels import gf2_reduce as gf2
     from repro_torch.kernels import ref
+    from repro_torch.launch.roofline import bound_ms
 
     def kernel():
         return gf2.gf2_reduce_cuda(blocks, n_rows)
@@ -3029,7 +3232,7 @@ def _time_gf2(blocks, n_rows) -> dict:
         g_, s_, w_ = blk.shape
         moved += 2 * blk.numel() * 4 + g_ * r * 4 + g_ * s_
         ops += 2.0 * w_ * (c["se"] + c["adds"])
-    bt, by = bound(moved, ops)
+    bt, by = bound_ms(moved, {"lane": ops})
     steps = torch.cat([c["steps"] for c in chains])
     steps_max = int(steps.max()) if steps.numel() else 0
     dev_ms = device_ms(kernel)
@@ -3064,16 +3267,16 @@ def _time_gf2(blocks, n_rows) -> dict:
 
 def _common_neighbors_bounds(b, n, edges, sums) -> dict:
     """The least time either epilogue could take, the larger of its bytes
-    at HBM_BYTES_PER_S (one read of adj; the (B, N, N) int32 counts, or
-    the mask and the two (B, N) int32 sums) and the int8 operations this
-    input needs at INT8_TC_OPS_PER_S: a count is needed on each of the
+    over HBM (one read of adj; the (B, N, N) int32 counts, or the mask
+    and the two (B, N) int32 sums) and the int8 operations this input
+    needs on the tensor cores: a count is needed on each of the
     ``edges`` nonzeros of the (live-restricted) adjacency only, and G is
     symmetric, so one inner product of N products per unordered edge,
     edges * N operations with an FMA as two."""
+    from repro_torch.launch.roofline import bound_ms
+
     moved = b * n * n + (9 * b * n if sums else 4 * b * n * n)
-    t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = float(edges) * n / INT8_TC_OPS_PER_S * 1e3
-    bt, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    bt, by = bound_ms(moved, {"int8_tc": float(edges) * n})
     return {"bound_ms": bt, "bound_by": by}
 
 
@@ -3150,6 +3353,7 @@ def _time_pairwise_l1(x, y) -> dict:
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.pairwise_gram import pairwise_l1_cuda
+    from repro_torch.launch.roofline import bound_ms
 
     (m, d), n = x.shape, y.shape[0]
 
@@ -3160,7 +3364,8 @@ def _time_pairwise_l1(x, y) -> dict:
         return torch.cdist(x, y, p=1)
 
     err = (kernel() - ref.pairwise_l1_ref(x, y)).abs()
-    bt, by = bound(4.0 * (m * d + n * d + m * n), 2.0 * m * n * d)
+    bt, by = bound_ms(4.0 * (m * d + n * d + m * n),
+                      {"lane": 2.0 * m * n * d})
     return {"name": "pairwise_l1", "shape": [m, n, d],
             "layout": _l1_layout(m, n),
             "max_abs_err": float(err.max()), "tolerance": L1_TOLERANCE,
@@ -3187,6 +3392,7 @@ def _time_hamming(codes_q, mask_q, codes_db) -> dict:
     import torch
     from repro_torch.kernels import hamming as hm
     from repro_torch.kernels import ref
+    from repro_torch.launch.roofline import bound_ms
 
     (q, w), n = codes_q.shape, codes_db.shape[0]
     table = torch.tensor([bin(i).count("1") for i in range(256)],
@@ -3204,8 +3410,8 @@ def _time_hamming(codes_q, mask_q, codes_db) -> dict:
     check(torch.equal(library(), want), "hamming_scan: the byte-table "
                                         "yardstick disagrees")
     filled = torch.empty_like(want)
-    bt, by = bound(4.0 * (2 * q * w + n * w + q * n), 3.0 * q * n * w,
-                   float(q * n * w))
+    bt, by = bound_ms(4.0 * (2 * q * w + n * w + q * n),
+                      {"lane": 3.0 * q * n * w, "mufu": float(q * n * w)})
     layout = getattr(hm, "layout", None)  # (older checkouts have none)
     sms = torch.cuda.get_device_properties(
         codes_q.device).multi_processor_count
@@ -3253,6 +3459,7 @@ def _time_sinkhorn_lse(xp, yp, dual, logw, e_t, packed=None) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels.sinkhorn_lse import (
         pack_columns, sinkhorn_lse_cuda)
+    from repro_torch.launch.roofline import bound_ms
 
     (b, _, m), n = xp.shape, yp.shape[-1]
     if packed is None:
@@ -3272,8 +3479,8 @@ def _time_sinkhorn_lse(xp, yp, dual, logw, e_t, packed=None) -> dict:
     cols = int((logw != float("-inf")).sum())
     visited = m * cols
     lane, mufu = SK_LSE_WORK
-    bt, by = bound(4.0 * (4 * b * m + b * n + 4 * cols + b),
-                   lane * visited, mufu * visited)
+    bt, by = bound_ms(4.0 * (4 * b * m + b * n + 4 * cols + b),
+                      {"lane": lane * visited, "mufu": mufu * visited})
     return {"name": "sinkhorn_lse", "shape": [b, m, n],
             # one thread a row, 128 a CTA (csrc/sinkhorn_lse.cu)
             "layout": {"grid": [b, -(-m // 128)], "threads": 128},
@@ -3298,6 +3505,7 @@ def _time_sinkhorn_pair_sum(xp, yp, f, g, log_a, log_b, e_t, mode) -> dict:
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import sinkhorn_lse as sk
+    from repro_torch.launch.roofline import bound_ms
 
     (b, _, m), n = xp.shape, yp.shape[-1]
     args = (xp, yp, f, g, log_a, log_b, e_t, mode)
@@ -3312,9 +3520,9 @@ def _time_sinkhorn_pair_sum(xp, yp, f, g, log_a, log_b, e_t, mode) -> dict:
     visited = int((rows * cols).sum())
     slot_bytes = 16 if mode == "plan" else 12
     lane, mufu = SK_PAIR_WORK[mode]
-    bt, by = bound(4.0 * b * (m + n + 2)
-                   + slot_bytes * int(rows.sum() + cols.sum()),
-                   lane * visited, mufu * visited)
+    bt, by = bound_ms(4.0 * b * (m + n + 2)
+                      + slot_bytes * int(rows.sum() + cols.sum()),
+                      {"lane": lane * visited, "mufu": mufu * visited})
     layout = getattr(sk, "layout", None)  # (older checkouts have none)
     sms = torch.cuda.get_device_properties(xp.device).multi_processor_count
     return {"name": "sinkhorn_pair_sum", "shape": [b, m, n], "mode": mode,
@@ -3339,13 +3547,15 @@ def _auction_row(name, cost, got, want, scans, io_bytes, kernel, plain):
     AUCTION_SCAN_OPS * M lane operations for each row or column scan this
     input needs (counted by the plain solver, which makes the kernel's
     rounds)."""
+    from repro_torch.launch.roofline import bound_ms
     from repro_torch.metrics.testing import (
         AUCTION_TOTAL_TOLERANCE, auction_agreement)
 
     differ, err, ok = auction_agreement(got, want, cost)
     rounds = want[3]
     m = cost.shape[-1]
-    bt, by = bound(io_bytes, AUCTION_SCAN_OPS * m * int(scans.sum()))
+    bt, by = bound_ms(io_bytes,
+                      {"lane": AUCTION_SCAN_OPS * m * int(scans.sum())})
     ms, dev_ms = cuda_ms(kernel), device_ms(kernel)
     return {"name": name, "shape": list(cost.shape), "max_abs_err": err,
             "outputs_differing": differ,
@@ -3546,6 +3756,7 @@ def main() -> int:
             emit(phase_serve_stream(dev, launches, recorder))
         finally:
             Recorder.uninstall(originals)
+        emit(phase_trace_report(n64, d64, index_run, dev))
         emit(phase_profile(n64, N64_CAPS))
         emit(phase_profile_clustering(n64))
         emit(phase_profile_index(*index_run, sharded))
@@ -3555,9 +3766,7 @@ def main() -> int:
         rows = contract_rows(
             [r for ph in ("signature_n64", "clustering_n64", "index_n64",
                           "sinkhorn_full_n320", "exact_n320")
-             for r in kernel_rows(recorder, ph)]
-            + kernel_rows(recorder, "sharded_index_n64",
-                          only=("hamming_scan",)), launches)
+             for r in kernel_rows(recorder, ph)], launches)
         at = {ph: kernel_rows(recorder, ph)
               for ph in ("signature_n320", "table1_n1024", "clustering_n1024",
                          "clustering_twitter", "fig2", "sinkhorn_n64",

@@ -1,22 +1,21 @@
 """ShardedIndex: TopoIndex partitioned row-wise over an index mesh
 (counterpart of ``repro.index.sharded_index``, in one process).
 
-The single-host :class:`repro_torch.index.topo_index.TopoIndex` runs its
-coarse Hamming scan on the host.  This class keeps the TopoIndex query
-surface and moves the retrieve path onto the devices of a
+This class keeps the :class:`repro_torch.index.topo_index.TopoIndex` query
+surface and lays the retrieve path over the devices of a
 :func:`repro_torch.launch.make_index_mesh` grid, one row block per shard:
 
 * **row stores**: packed LSH codes (int32 words) and compacted clouds are
   cut in contiguous row blocks over the *flattened* mesh, shard ``p`` of
   ``P`` owning rows ``[p*per, (p+1)*per)`` (``repro``'s
   ``launch.sharding.index_row_spec``), each block on its shard's device;
-* **coarse stage on the device**: per shard, the Hamming kernel
-  (:func:`repro_torch.kernels.ops.hamming_scan`) over the shard's codes,
-  then a local top-``m`` on the int64 key ``dist * N + row``.  The key is
-  unique, so the result does not depend on ``torch.topk``'s order among
-  ties; the host merges the ``P * m`` survivors on the same key.  The
-  global top-``m`` is a subset of the union of the shards' top-``m``, so
-  the candidates equal the single-host scan's, ties included;
+* **coarse stage on the device**: :func:`repro_torch.index.topo_index.
+  device_scan`, the single-host index's own device scan, over the shards'
+  blocks: per shard the Hamming kernel and a local top-``m`` on the int64
+  key ``dist * N + row``, merged on the base index's device on the same
+  key.  The global top-``m`` is a subset of the union of the shards'
+  top-``m``, so the candidates equal the single-host scan's, ties
+  included; at P = 1 the two indexes run the same code;
 * **SUMMA Gram**: for ``coarse="none"`` and :meth:`gram`, corpus rows split
   over ``"row"`` and the embedding width over ``"col"`` (``repro``'s
   ``launch.sharding.index_gram_specs``).  Query blocks step around the
@@ -47,14 +46,11 @@ from repro_torch.index.topo_index import (
     TopoIndex,
     TopoIndexConfig,
     clouds_to_diagrams,
+    device_scan,
 )
 from repro_torch.kernels import ops
 from repro_torch.kernels.hamming import as_int32_words, pack_codes_u32
 from repro_torch.launch.mesh import IndexMesh, make_index_mesh
-
-# distance given to the pad rows of the last shard: larger than any real
-# Hamming count (lsh_bits <= 2^20) but far from int32 overflow
-_PAD_DIST = 1 << 28
 
 
 def _default_mesh(device: torch.device) -> IndexMesh:
@@ -213,34 +209,15 @@ class ShardedIndex:
         the single-host scan's order: (distance, row) ascending."""
         self._ensure_device_state()
         base = self.base
-        margins = base._lsh_margins(emb_q)
-        codes_q = as_int32_words(
-            pack_codes_u32(np.packbits(margins > 0, axis=-1)))
-        mask_u8 = base._query_bit_masks(margins, probes)
-        mask_q = (torch.full(codes_q.shape, -1, dtype=torch.int32)
-                  if mask_u8 is None
-                  else as_int32_words(pack_codes_u32(mask_u8)))
-        n, nq, per = len(base), codes_q.shape[0], self._per
-        m_loc = min(m, per)
-        keys = []
-        for p, (dev, codes) in enumerate(zip(self.mesh.flat, self._codes)):
-            dist = ops.hamming_scan(codes_q.to(dev), codes, mask_q.to(dev))
-            row = torch.arange(p * per, (p + 1) * per, device=dev)
-            dist = torch.where(row < n, dist, _PAD_DIST)
-            key = dist.to(torch.int64) * n + row
-            keys.append(torch.topk(key, m_loc, dim=1, largest=False,
-                                   sorted=False).values.cpu().numpy())
+        codes_q, mask_q = base._query_codes(emb_q, probes)
+        n, per = len(base), self._per
+        cand = device_scan(codes_q, mask_q,
+                           [(p * per, codes)
+                            for p, codes in enumerate(self._codes)],
+                           n, m, base.device)
         counters.INDEX[("sharded_scans", "hamming")] += 1
-        counters.INDEX[("sharded_rows", "hamming")] += n * nq
-        # host merge of the shards' survivors on the same key as
-        # TopoIndex._coarse_candidates: the merged set, ties included, is
-        # the host scan's
-        key = np.concatenate(keys, axis=1)
-        key = np.where(key < np.int64(_PAD_DIST) * n, key, np.int64(2**62))
-        key = np.take_along_axis(
-            key, np.argpartition(key, m - 1, axis=-1)[:, :m], -1)
-        key.sort(axis=-1)
-        return key % n
+        counters.INDEX[("sharded_rows", "hamming")] += n * codes_q.shape[0]
+        return cand
 
     def query(self, d: Diagrams, k: int = 5,
               probes: int | None = None) -> QueryResult:

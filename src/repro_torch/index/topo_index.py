@@ -7,14 +7,18 @@ with the :mod:`repro_torch.topo.features` signature vector).  A query is a
 retrieve -> re-rank pipeline:
 
 * **coarse stage** (``coarse="lsh"``): packed hyperplane codes over the
-  embeddings, Hamming-ranked on the host with byte popcounts, streamed in
-  chunks with a running top-m merge;
+  embeddings, Hamming-ranked with a running top-m merge on the key
+  ``dist * N + row``: on CUDA by the ``hamming_scan`` kernel over a device
+  copy of the codes (:func:`device_scan`, which ShardedIndex shares), on
+  the CPU by byte popcounts on the host (:func:`host_scan`, as ``repro``'s
+  single-host index); both give the same rows in the same order;
 * **Gram stage**: the pairwise-L1 kernel
   (:func:`repro_torch.kernels.ops.pairwise_l1`) over the surviving
   candidates, or over the whole index when ``coarse="none"``.
 
-The index keeps its embeddings twice: on the host as numpy (saves and LSH
-codes) and on its device (the Gram stage), CUDA unless it is created with
+The index keeps its embeddings and LSH codes twice: on the host as numpy
+(saves, codes of record) and on its device (the Gram stage; the codes as
+int32 words for the device scan), CUDA unless it is created with
 ``device="cpu"``.  ``save``/``load`` write and read the same ``.npz`` layout
 as ``repro``'s TopoIndex, so an index saved by either package loads in the
 other.  Ranking ties break toward the lower row, as ``lax.top_k`` does.
@@ -31,6 +35,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.core.persistence import Diagrams
 from repro_torch.kernels import ops
+from repro_torch.kernels.hamming import TILE_N, as_int32_words, pack_codes_u32
 from repro_torch.metrics.distances import compact_top_k, sw_embedding
 from repro_torch.topo.features import feature_vector
 
@@ -39,6 +44,82 @@ COARSE = ("none", "lsh")
 
 # byte -> set-bit count: packed-code Hamming distances on the host
 _POPCOUNT = np.array([bin(i).count("1") for i in range(256)], np.uint8)
+# distance given to pad rows (a sharded index's last shard): larger than any
+# real Hamming count (lsh_bits <= 2^20) but far from int32 overflow
+_PAD_DIST = 1 << 28
+# (query, corpus row) pairs one device scan takes at once: its (Q, chunk)
+# int32 distances and int64 keys hold 12 bytes a pair, 201 MB at 2^24, so a
+# 262,144-row corpus and 256 queries scan in 4 chunks of 65,536 rows
+# instead of one 268 MB distance block
+SCAN_PAIRS = 1 << 24
+
+
+def host_scan(codes_q: np.ndarray, codes_db: np.ndarray,
+              mask_q: Optional[np.ndarray], m: int,
+              chunk: int = 1 << 16) -> np.ndarray:
+    """(Q, m) Hamming-nearest rows of ``codes_db`` on the host, ascending by
+    (distance, row).
+
+    Codes are packed uint8 (``mask_q``: the query bits kept, ``None`` for
+    all).  XOR + popcount over the packed bytes, streamed in ``chunk``-row
+    blocks with a running per-query top-``m`` merge on the key
+    ``dist * N + row``, so ties go to the lower row whatever the chunking.
+    """
+    n = codes_db.shape[0]
+    best = np.zeros((codes_q.shape[0], 0), np.int64)
+    for s in range(0, n, chunk):
+        x = codes_q[:, None, :] ^ codes_db[None, s:s + chunk, :]
+        if mask_q is not None:
+            x &= mask_q[:, None, :]
+        dist = _POPCOUNT[x].sum(axis=-1, dtype=np.int64)
+        key = dist * n + np.arange(s, s + dist.shape[1], dtype=np.int64)
+        cat = np.concatenate([best, key], axis=1)
+        if cat.shape[1] > m:
+            cat = np.take_along_axis(
+                cat, np.argpartition(cat, m - 1, axis=-1)[:, :m], -1)
+        best = cat
+    best.sort(axis=-1)
+    return best % n
+
+
+def device_scan(codes_q: np.ndarray, mask_q: Optional[np.ndarray],
+                blocks: Sequence[tuple[int, torch.Tensor]], n: int, m: int,
+                device, chunk: int | None = None) -> np.ndarray:
+    """(Q, m) Hamming-nearest rows through :func:`ops.hamming_scan`, in
+    :func:`host_scan`'s order.
+
+    ``codes_q``/``mask_q`` as for :func:`host_scan`; ``blocks``: the corpus
+    as ``(first row, (rows, W) int32 words on a device)`` pieces, rows at or
+    past ``n`` padding (distance ``_PAD_DIST``).  Each piece is scanned in
+    ``chunk``-row slices (default: ``SCAN_PAIRS`` pairs a slice) and keeps
+    its top ``m`` on the int64 key ``dist * n + row`` (``torch.topk``); the
+    survivors merge on ``device`` on the same key.  The key is unique, so
+    the result is the host scan's, ties included, whatever the pieces.
+    """
+    cq = as_int32_words(pack_codes_u32(codes_q))
+    mq = (torch.full(cq.shape, -1, dtype=torch.int32) if mask_q is None
+          else as_int32_words(pack_codes_u32(mask_q)))
+    if chunk is None:
+        chunk = max(TILE_N, SCAN_PAIRS // max(cq.shape[0], 1) // TILE_N
+                    * TILE_N)
+    keys = []
+    for start, codes in blocks:
+        dev = codes.device
+        cq_d, mq_d = cq.to(dev), mq.to(dev)
+        for s in range(0, codes.shape[0], chunk):
+            dist = ops.hamming_scan(cq_d, codes[s:s + chunk], mq_d)
+            lo = start + s
+            row = torch.arange(lo, lo + dist.shape[1], device=dev)
+            if lo + dist.shape[1] > n:
+                dist = torch.where(row < n, dist, _PAD_DIST)
+            key = dist.to(torch.int64) * n + row
+            keys.append(torch.topk(key, min(m, key.shape[1]), dim=1,
+                                   largest=False, sorted=False)
+                        .values.to(device))
+    key = torch.cat(keys, dim=1)
+    if key.shape[1] > m:
+        key = torch.topk(key, m, dim=1, largest=False, sorted=False).values
+    return (torch.sort(key, dim=1).values % n).cpu().numpy()
 
 
 def clouds_to_diagrams(cl: np.ndarray, k: int, device=None) -> Diagrams:
@@ -164,9 +245,14 @@ class TopoIndex:
         self._has_clouds = True  # False only for loads of pre-clouds saves
         # packed LSH codes (N, lsh_bits/8) u8, kept when coarse="lsh"
         self._codes = np.zeros((0, c.lsh_bits // 8), np.uint8)
+        # their (N, W) int32 words on self.device, for the device scan, and
+        # the host array they were made from (rebuilt when that changed)
+        self._codes_device: Optional[torch.Tensor] = None
+        self._codes_device_of: Optional[np.ndarray] = None
         self._proj: Optional[np.ndarray] = None
         # the embeddings on self.device: appended by add, set by load
         self._emb_device = torch.zeros((0, c.width), device=self.device)
+        self._device_codes()
 
     def __len__(self) -> int:
         return len(self._ids)
@@ -231,6 +317,22 @@ class TopoIndex:
         np.put_along_axis(keep, flip, False, axis=-1)
         return np.packbits(keep, axis=-1)
 
+    def _query_codes(self, emb_q: np.ndarray, probes: int | None = None
+                     ) -> tuple[np.ndarray, Optional[np.ndarray]]:
+        """Packed codes and multi-probe masks of (Q, width) host query
+        embeddings."""
+        margins = self._lsh_margins(emb_q)
+        return (np.packbits(margins > 0, axis=-1),
+                self._query_bit_masks(margins, probes))
+
+    def _device_codes(self) -> torch.Tensor:
+        """The stored codes as (N, W) int32 words on the index's device."""
+        if self._codes_device_of is not self._codes:
+            self._codes_device = as_int32_words(
+                pack_codes_u32(self._codes)).to(self.device)
+            self._codes_device_of = self._codes
+        return self._codes_device
+
     def query_codes(self, d: Diagrams) -> np.ndarray:
         """(B, lsh_bits/8) packed LSH codes of a query batch, whatever the
         ``coarse`` setting."""
@@ -259,8 +361,14 @@ class TopoIndex:
         self._emb = np.concatenate([self._emb, emb], axis=0)
         self._clouds = np.concatenate([self._clouds, clouds], axis=0)
         if c.coarse == "lsh":
-            self._codes = np.concatenate(
-                [self._codes, self._lsh_codes(emb)], axis=0)
+            new = self._lsh_codes(emb)
+            in_step = self._codes_device_of is self._codes
+            self._codes = np.concatenate([self._codes, new], axis=0)
+            if in_step:  # append the new rows' words to the device copy
+                self._codes_device = torch.cat([
+                    self._codes_device,
+                    as_int32_words(pack_codes_u32(new)).to(self.device)])
+                self._codes_device_of = self._codes
         self._ids.extend(ids)
         self._emb_device = torch.cat([self._emb_device, emb_dev], dim=0)
         return ids
@@ -278,32 +386,20 @@ class TopoIndex:
     def _coarse_candidates(self, emb_q: np.ndarray, m: int,
                            probes: int | None = None,
                            chunk: int = 1 << 16) -> np.ndarray:
-        """(Q, m) Hamming-nearest row indices (the coarse LSH stage).
+        """(Q, m) Hamming-nearest row indices (the coarse LSH stage),
+        ascending by (distance, row).
 
-        XOR + popcount over the packed bytes, streamed in ``chunk``-row
-        blocks with a running per-query top-``m`` merge on the key
-        ``dist * N + row``, so ties go to the lower row whatever the
-        chunking.  With ``probes`` > 1 the ``flip_bits`` lowest-margin query
-        bits are masked out of the distance.
+        On the CPU the host scan (``chunk`` rows a block), on any other
+        device the ``hamming_scan`` kernel over the device copy of the
+        codes; there is no fallback from one to the other.  With ``probes``
+        > 1 the ``flip_bits`` lowest-margin query bits are masked out of
+        the distance.
         """
-        margins = self._lsh_margins(emb_q)
-        codes_q = np.packbits(margins > 0, axis=-1)
-        mask_q = self._query_bit_masks(margins, probes)
-        n = self._codes.shape[0]
-        best = np.zeros((codes_q.shape[0], 0), np.int64)
-        for s in range(0, n, chunk):
-            x = codes_q[:, None, :] ^ self._codes[None, s:s + chunk, :]
-            if mask_q is not None:
-                x &= mask_q[:, None, :]
-            dist = _POPCOUNT[x].sum(axis=-1, dtype=np.int64)
-            key = dist * n + np.arange(s, s + dist.shape[1], dtype=np.int64)
-            cat = np.concatenate([best, key], axis=1)
-            if cat.shape[1] > m:
-                cat = np.take_along_axis(
-                    cat, np.argpartition(cat, m - 1, axis=-1)[:, :m], -1)
-            best = cat
-        best.sort(axis=-1)
-        return best % n
+        codes_q, mask_q = self._query_codes(emb_q, probes)
+        if self.device.type == "cpu":
+            return host_scan(codes_q, self._codes, mask_q, m, chunk)
+        return device_scan(codes_q, mask_q, [(0, self._device_codes())],
+                           len(self), m, self.device)
 
     def _rank_candidates(self, emb_q: torch.Tensor, cand: np.ndarray,
                          kk: int) -> tuple[np.ndarray, np.ndarray]:
@@ -409,4 +505,5 @@ class TopoIndex:
                     index._codes = codes
                 else:  # a save without codes: rebuild them from emb
                     index._codes = index._lsh_codes(emb)
+                index._device_codes()
         return index

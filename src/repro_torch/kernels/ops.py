@@ -4,14 +4,25 @@ A wrapper takes the tensors' device as the choice: for CPU tensors it runs
 the plain PyTorch version (:mod:`repro_torch.kernels.ref`); for CUDA tensors
 it launches the hand-written kernel, or raises.  There is no fallback from
 one to the other.  Each launch adds one to
-``repro_torch.counters.KERNEL_LAUNCHES[name]``.
+``repro_torch.counters.KERNEL_LAUNCHES[name]`` and to the ``kernels.calls``
+counter of :mod:`repro_torch.obs` (label ``kernel``), at the same site.
+These wrappers run eagerly, so ``kernels.calls`` counts launches one to one;
+``repro``'s counter of that name counts its wrappers' calls, at trace time
+under ``jit``.
+
+Each wrapper runs its kernel or plain version inside
+``obs.span("kernels.<name>", shape=...)``, with ``repro``'s span name and
+shape-token string (``B{b}_N{n}``, ``S{s}``, ``G{max}_D{d}``, ...), so a
+trace of either package reads the same rows in
+``python -m repro_torch.obs report``.  On CUDA a span times the host
+wrapper around an asynchronous launch, not the device's time.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch import counters
+from repro_torch import counters, obs
 from repro_torch._device import resolve_device
 from repro_torch.kernels import ref
 from repro_torch.kernels.auction_lap import (
@@ -27,6 +38,20 @@ from repro_torch.kernels.kcore_peel import kcore_peel_cuda
 from repro_torch.kernels.pairwise_gram import pairwise_l1_cuda
 from repro_torch.kernels.sinkhorn_lse import (
     PackedColumns, pack_columns, sinkhorn_lse_cuda, sinkhorn_pair_sum_cuda)
+
+
+# Launches by kernel (always on).  The help text is repro's, so both
+# registries export one series.
+_KCALLS = obs.counter(
+    "kernels.calls",
+    help="Pallas kernel wrapper invocations (trace-time under jit)")
+
+
+def _launched(kernel: str, label: str | None = None) -> None:
+    """Count one launch of ``kernel`` (``label``: the wrapper's name in
+    ``kernels.calls``, where it differs)."""
+    counters.KERNEL_LAUNCHES[kernel] += 1
+    _KCALLS.inc(kernel=label or kernel)
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
@@ -63,20 +88,21 @@ def kcore_peel(adj: torch.Tensor, alive: torch.Tensor, k: int,
     _check("kcore_peel alive", alive, torch.bool, (b, n), alive.device)
     if sweeps < 0:
         raise ValueError(f"sweeps must be >= 0, got {sweeps}")
-    if _route(alive.device, "kcore_peel"):
-        out = kcore_peel_cuda(adj, alive, k, sweeps)
-        if b and n:
-            counters.KERNEL_LAUNCHES["kcore_peel"] += 1
-        return out
-    s = 0
-    while sweeps == 0 or s < sweeps:
-        new = ref.kcore_peel_ref(adj, alive, k)
-        s += 1
-        changed = bool((new != alive).any())
-        alive = new
-        if not changed:
-            break
-    return alive
+    with obs.span("kernels.kcore_peel", shape=f"B{b}_N{n}"):
+        if _route(alive.device, "kcore_peel"):
+            out = kcore_peel_cuda(adj, alive, k, sweeps)
+            if b and n:
+                _launched("kcore_peel")
+            return out
+        s = 0
+        while sweeps == 0 or s < sweeps:
+            new = ref.kcore_peel_ref(adj, alive, k)
+            s += 1
+            changed = bool((new != alive).any())
+            alive = new
+            if not changed:
+                break
+        return alive
 
 
 def domination(adj: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -84,20 +110,17 @@ def domination(adj: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     b, n = mask.shape
     _check("domination adj", adj, torch.bool, (b, n, n), mask.device)
     _check("domination mask", mask, torch.bool, (b, n), mask.device)
-    if _route(mask.device, "domination"):
-        out = domination_cuda(adj, mask)
-        if b and n:
-            counters.KERNEL_LAUNCHES["domination"] += 1
-        return out
-    return ref.domination_ref(adj, mask)
+    with obs.span("kernels.domination", shape=f"B{b}_N{n}"):
+        if _route(mask.device, "domination"):
+            out = domination_cuda(adj, mask)
+            if b and n:
+                _launched("domination")
+            return out
+        return ref.domination_ref(adj, mask)
 
 
-def gf2_reduce_blocks(blocks, n_rows):
-    """Reduce (G, S_d, W_d) int32 packed blocks, all in one launch on CUDA.
-
-    Returns a list of ``(reduced, owner (G, R_d) int32, positive (G, S_d)
-    bool)``, one per block; ``n_rows[d]`` = R_d sizes the owner vector.
-    """
+def _gf2_checked(blocks, n_rows):
+    """The blocks and row counts as lists, checked."""
     blocks = list(blocks)
     n_rows = [int(r) for r in n_rows]
     if not blocks or len(blocks) != len(n_rows) or len(blocks) > MAX_BLOCKS:
@@ -112,12 +135,38 @@ def gf2_reduce_blocks(blocks, n_rows):
         if r > 32 * b.shape[2]:
             raise ValueError(f"gf2 block {d}: {r} rows exceed {b.shape[2]} "
                              f"words")
-    if _route(dev, "gf2_reduce"):
-        outs = gf2_reduce_cuda(blocks, n_rows)
-        if g:
-            counters.KERNEL_LAUNCHES["gf2_reduce"] += 1
-        return outs
-    return [ref.gf2_reduce_ref(b, r) for b, r in zip(blocks, n_rows)]
+    return blocks, n_rows
+
+
+def _gf2_run(blocks, n_rows, name: str, shape: str):
+    """One launch (or the plain version) over checked blocks, in the span
+    ``kernels.<name>``."""
+    with obs.span(f"kernels.{name}", shape=shape):
+        if _route(blocks[0].device, "gf2_reduce"):
+            outs = gf2_reduce_cuda(blocks, n_rows)
+            if blocks[0].shape[0]:
+                _launched("gf2_reduce", name)
+            return outs
+        return [ref.gf2_reduce_ref(b, r) for b, r in zip(blocks, n_rows)]
+
+
+def gf2_reduce_blocks(blocks, n_rows):
+    """Reduce (G, S_d, W_d) int32 packed blocks, all in one launch on CUDA.
+
+    Returns a list of ``(reduced, owner (G, R_d) int32, positive (G, S_d)
+    bool)``, one per block; ``n_rows[d]`` = R_d sizes the owner vector.
+    The launch's span is ``kernels.gf2_reduce_batch``: ``B{G}_S{S}`` for
+    one block, as ``repro``'s batch wrapper; for several, S is the blocks'
+    columns summed and a ``C`` token their packed words a matrix,
+    ``Σ_d S_d W_d``.
+    """
+    blocks, n_rows = _gf2_checked(blocks, n_rows)
+    g = blocks[0].shape[0]
+    cols = sum(b.shape[1] for b in blocks)
+    shape = f"B{g}_S{cols}"
+    if len(blocks) > 1:
+        shape += f"_C{sum(b.shape[1] * b.shape[2] for b in blocks)}"
+    return _gf2_run(blocks, n_rows, "gf2_reduce_batch", shape)
 
 
 def gf2_reduce_batch(b: torch.Tensor, n_rows: int | None = None):
@@ -129,11 +178,14 @@ def gf2_reduce_batch(b: torch.Tensor, n_rows: int | None = None):
 def gf2_reduce(b: torch.Tensor, n_rows: int | None = None):
     """Reduce one (S, W) packed matrix -> (reduced, owner (R,), positive (S,)).
 
-    The batch form with B = 1.
+    The batch form with B = 1, in the span ``kernels.gf2_reduce``.
     """
     if b.dim() != 2:
         raise ValueError(f"gf2_reduce: want (S, W), got {tuple(b.shape)}")
-    red, owner, positive = gf2_reduce_batch(b[None], n_rows)
+    blocks, n_rows = _gf2_checked(
+        [b[None]], [b.shape[0] if n_rows is None else n_rows])
+    (red, owner, positive), = _gf2_run(blocks, n_rows, "gf2_reduce",
+                                       f"S{b.shape[0]}")
     return red[0], owner[0], positive[0]
 
 
@@ -144,12 +196,13 @@ def common_neighbors(adj: torch.Tensor) -> torch.Tensor:
                          f"{tuple(adj.shape)}")
     b, n, _ = adj.shape
     _check("common_neighbors adj", adj, torch.bool, (b, n, n), adj.device)
-    if _route(adj.device, "common_neighbors"):
-        out = common_neighbors_cuda(adj)
-        if b and n:
-            counters.KERNEL_LAUNCHES["common_neighbors"] += 1
-        return out
-    return ref.common_neighbors_ref(adj)
+    with obs.span("kernels.common_neighbors", shape=f"B{b}_N{n}"):
+        if _route(adj.device, "common_neighbors"):
+            out = common_neighbors_cuda(adj)
+            if b and n:
+                _launched("common_neighbors")
+            return out
+        return ref.common_neighbors_ref(adj)
 
 
 def clustering_coefficients(adj: torch.Tensor,
@@ -159,7 +212,9 @@ def clustering_coefficients(adj: torch.Tensor,
     The adjacency is restricted to live vertices first, so padding rows
     (and vertices of degree < 2) give 0, never NaN.  On CUDA one launch of
     the common-neighbors kernel's fused epilogue gives the row sums (adj
-    taken to be symmetric); nothing of size (B, N, N) is written.
+    taken to be symmetric); nothing of size (B, N, N) is written.  Either
+    way the span is ``common_neighbors``' (``repro``'s reaches that
+    wrapper).
     """
     b, n = mask.shape
     _check("clustering_coefficients mask", mask, torch.bool, (b, n),
@@ -168,9 +223,10 @@ def clustering_coefficients(adj: torch.Tensor,
         adj = adj.contiguous()
         _check("clustering_coefficients adj", adj, torch.bool, (b, n, n),
                adj.device)
-        tri2, deg = common_neighbors_rowsums_cuda(adj, mask)
-        if b and n:
-            counters.KERNEL_LAUNCHES["common_neighbors"] += 1
+        with obs.span("kernels.common_neighbors", shape=f"B{b}_N{n}"):
+            tri2, deg = common_neighbors_rowsums_cuda(adj, mask)
+            if b and n:
+                _launched("common_neighbors")
     else:
         adj = adj & mask[:, None, :] & mask[:, :, None]
         tri2 = common_neighbors(adj).sum(-1)  # 2 * triangles through u
@@ -197,12 +253,13 @@ def pairwise_l1(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     (m, d), n = x.shape, y.shape[0]
     _check("pairwise_l1 x", x, torch.float32, (m, d), x.device)
     _check("pairwise_l1 y", y, torch.float32, (n, d), x.device)
-    if _route(x.device, "pairwise_l1"):
-        out = pairwise_l1_cuda(x, y)
-        if m and n:
-            counters.KERNEL_LAUNCHES["pairwise_l1"] += 1
-        return out
-    return ref.pairwise_l1_ref(x, y)
+    with obs.span("kernels.pairwise_l1", shape=f"G{max(m, n)}_D{d}"):
+        if _route(x.device, "pairwise_l1"):
+            out = pairwise_l1_cuda(x, y)
+            if m and n:
+                _launched("pairwise_l1")
+            return out
+        return ref.pairwise_l1_ref(x, y)
 
 
 def _code_words(codes, device: torch.device) -> torch.Tensor:
@@ -245,12 +302,13 @@ def hamming_scan(codes_q, codes_db, mask_q=None,
     _check("hamming_scan codes_q", cq, torch.int32, (q, w), dev)
     _check("hamming_scan mask_q", mq, torch.int32, (q, w), dev)
     _check("hamming_scan codes_db", cd, torch.int32, (n, w), dev)
-    if _route(dev, "hamming_scan"):
-        out = hamming_scan_cuda(cq, mq, cd)
-        if q and n:
-            counters.KERNEL_LAUNCHES["hamming_scan"] += 1
-        return out
-    return ref.hamming_scan_ref(cq, mq, cd)
+    with obs.span("kernels.hamming_scan", shape=f"Q{q}_N{n}_W{w}"):
+        if _route(dev, "hamming_scan"):
+            out = hamming_scan_cuda(cq, mq, cd)
+            if q and n:
+                _launched("hamming_scan")
+            return out
+        return ref.hamming_scan_ref(cq, mq, cd)
 
 
 def _check_planes(name, xp, yp, *, rows, cols, e_t):
@@ -289,16 +347,17 @@ def sinkhorn_lse(xp: torch.Tensor, yp: torch.Tensor, dual: torch.Tensor,
             or packed.index.device != xp.device):
         raise ValueError(f"sinkhorn_lse: packed must be the pack_columns of "
                          f"the ({b}, 3, {n}) planes on {xp.device}")
-    if _route(xp.device, "sinkhorn_lse"):
-        out = sinkhorn_lse_cuda(xp, yp, dual, logw, e_t, packed)
-        if b and m:
-            counters.KERNEL_LAUNCHES["sinkhorn_lse"] += 1
-        return out
-    if packed is None:
-        return ref.sinkhorn_lse_ref(xp, yp, dual, logw, e_t)
-    return ref.sinkhorn_lse_ref(xp, packed.planes,
-                                dual.gather(-1, packed.index.long()),
-                                packed.logw, e_t)
+    with obs.span("kernels.sinkhorn_lse", shape=f"B{b}_M{m}"):
+        if _route(xp.device, "sinkhorn_lse"):
+            out = sinkhorn_lse_cuda(xp, yp, dual, logw, e_t, packed)
+            if b and m:
+                _launched("sinkhorn_lse")
+            return out
+        if packed is None:
+            return ref.sinkhorn_lse_ref(xp, yp, dual, logw, e_t)
+        return ref.sinkhorn_lse_ref(xp, packed.planes,
+                                    dual.gather(-1, packed.index.long()),
+                                    packed.logw, e_t)
 
 
 def sinkhorn_pair_sum(xp: torch.Tensor, yp: torch.Tensor, f: torch.Tensor,
@@ -316,12 +375,15 @@ def sinkhorn_pair_sum(xp: torch.Tensor, yp: torch.Tensor, f: torch.Tensor,
         raise ValueError(f"unknown pair-sum mode {mode!r}")
     b, m, n = _check_planes("sinkhorn_pair_sum", xp, yp, rows=(f, log_a),
                             cols=(g, log_b), e_t=e_t)
-    if _route(xp.device, "sinkhorn_pair_sum"):
-        out = sinkhorn_pair_sum_cuda(xp, yp, f, g, log_a, log_b, e_t, mode)
-        if b and m:  # with no rows the sums are zeroed, nothing launched
-            counters.KERNEL_LAUNCHES["sinkhorn_pair_sum"] += 1
-        return out
-    return ref.sinkhorn_pair_sum_ref(xp, yp, f, g, log_a, log_b, e_t, mode)
+    with obs.span("kernels.sinkhorn_pair_sum", shape=f"B{b}_M{m}"):
+        if _route(xp.device, "sinkhorn_pair_sum"):
+            out = sinkhorn_pair_sum_cuda(xp, yp, f, g, log_a, log_b, e_t,
+                                         mode)
+            if b and m:  # with no rows the sums are zeroed, nothing launched
+                _launched("sinkhorn_pair_sum")
+            return out
+        return ref.sinkhorn_pair_sum_ref(xp, yp, f, g, log_a, log_b, e_t,
+                                         mode)
 
 
 # the widest problem the auction kernels take: their per-slot state must fit
@@ -365,14 +427,16 @@ def auction_lap(cost: torch.Tensor, n_scales: int = 10,
     M <= 32, a CTA per problem above.
     """
     b, m, rounds = _check_auction("auction_lap", cost, n_scales, max_rounds)
-    if _route(cost.device, "auction_lap"):
-        ladder = eps_ladder(DEFAULT_EPS0, DEFAULT_EPS_FACTOR, n_scales,
-                            cost.device)
-        out = auction_lap_cuda(cost, ladder, rounds)
-        if b and m:
-            counters.KERNEL_LAUNCHES["auction_lap"] += 1
-        return out
-    return ref.auction_lap_ref(cost, n_scales=n_scales, max_rounds=rounds)
+    with obs.span("kernels.auction_lap", shape=f"B{b}_M{m}"):
+        if _route(cost.device, "auction_lap"):
+            ladder = eps_ladder(DEFAULT_EPS0, DEFAULT_EPS_FACTOR, n_scales,
+                                cost.device)
+            out = auction_lap_cuda(cost, ladder, rounds)
+            if b and m:
+                _launched("auction_lap")
+            return out
+        return ref.auction_lap_ref(cost, n_scales=n_scales,
+                                   max_rounds=rounds)
 
 
 def auction_lap_collapsed(cbar: torch.Tensor, keep1: torch.Tensor,
@@ -399,13 +463,15 @@ def auction_lap_collapsed(cbar: torch.Tensor, keep1: torch.Tensor,
     _check("auction_lap_collapsed price0", price0, torch.float32, (b, k), dev)
     if rev_every < 0:
         raise ValueError(f"rev_every must be >= 0, got {rev_every}")
-    if _route(dev, "auction_lap_collapsed"):
-        ladder = eps_ladder(DEFAULT_EPS0, DEFAULT_EPS_FACTOR, n_scales, dev)
-        out = auction_lap_collapsed_cuda(cbar, keep1, keep2, price0, ladder,
-                                         rounds, int(rev_every))
-        if b and k:
-            counters.KERNEL_LAUNCHES["auction_lap_collapsed"] += 1
-        return out
-    return ref.auction_lap_collapsed_ref(cbar, keep1, keep2, price0,
-                                         n_scales=n_scales, max_rounds=rounds,
-                                         rev_every=int(rev_every))
+    with obs.span("kernels.auction_lap_collapsed", shape=f"B{b}_K{k}"):
+        if _route(dev, "auction_lap_collapsed"):
+            ladder = eps_ladder(DEFAULT_EPS0, DEFAULT_EPS_FACTOR, n_scales,
+                                dev)
+            out = auction_lap_collapsed_cuda(cbar, keep1, keep2, price0,
+                                             ladder, rounds, int(rev_every))
+            if b and k:
+                _launched("auction_lap_collapsed")
+            return out
+        return ref.auction_lap_collapsed_ref(
+            cbar, keep1, keep2, price0, n_scales=n_scales, max_rounds=rounds,
+            rev_every=int(rev_every))

@@ -21,11 +21,13 @@ port's own copy of ``repro.obs``).
 - **Scrape endpoints** (:mod:`repro_torch.obs.http`) — dependency-free
   ``/metrics``, ``/healthz``, ``/readyz``, ``/varz``, ``/slo``,
   ``/debug/flight`` HTTP server, bound to ``127.0.0.1`` by default.
+- **Trace report** (:mod:`repro_torch.obs.report`) — top-k self-time
+  table over an exported trace, kernel spans labelled with the card's
+  roofline cost cells; ``python -m repro_torch.obs report|watch|slo
+  check`` is the CLI.
 
-The trace report (``repro.obs.report``, which reads PerfGate's cost
-cells) and the ``python -m repro.obs`` CLI that imports it are not ported.
 ``repro_torch.counters`` (kernel launches, loop rounds) is separate and
-stays as it is.
+stays as it is; every launch also counts in ``kernels.calls``.
 
 Typical instrumentation site::
 
@@ -81,6 +83,7 @@ from .export import (
     snapshot,
 )
 from .http import ObsHTTPServer, start_http_server
+from .report import report
 from .slo import (
     BurnRule,
     SLOEngine,
@@ -105,6 +108,8 @@ __all__ = [
     "BurnRule", "SLOEngine", "SLOSpec", "default_serve_slos",
     "slo_status",
     "ObsHTTPServer", "start_http_server",
+    # TopoScope report
+    "report",
 ]
 
 

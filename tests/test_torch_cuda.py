@@ -768,9 +768,13 @@ def test_sharded_index_on_the_card_matches_the_cpu(cuda, coarse):
     q = Diagrams(*(getattr(d, k)[:7] for k in ("birth", "death", "dim",
                                                "valid"))).to(cuda)
     counters.reset()
-    got, want = sharded.query(q, k=5), card.query(q, k=5)
+    got = sharded.query(q, k=5)
+    sharded_scans = counters.snapshot()["hamming_scan"]
+    want = card.query(q, k=5)
     if coarse == "lsh":
-        assert counters.snapshot()["hamming_scan"] == 2  # one per shard
+        assert sharded_scans == 2  # one per shard
+        # the single-host index on the card scans on the kernel too
+        assert counters.snapshot()["hamming_scan"] == 3
         assert got.ids == want.ids
         np.testing.assert_array_equal(got.distances, want.distances)
         emb_q = cpu.embed(q.to("cpu")).numpy()
@@ -784,3 +788,57 @@ def test_sharded_index_on_the_card_matches_the_cpu(cuda, coarse):
     assert _l1_ok(sharded.gram(), e, e)
     rows = np.array([[0, 96, 50], [3, 3, 48]])
     assert diagrams_bitwise_equal(sharded.clouds(rows), cpu.clouds(rows))
+
+
+def test_topo_index_lsh_scans_on_the_card(cuda, tmp_path):
+    """The single-host TopoIndex's coarse stage on the card: one
+    ``hamming_scan`` launch a query batch and no host scan; candidates
+    bitwise the host numpy scan's over the same codes (probes 1 and 3),
+    query ids bitwise a ranking of the host scan's candidates, after an
+    add that follows a query and after a save/load."""
+    from repro_torch import counters
+    from repro_torch.core.persistence import Diagrams
+    from repro_torch.index import TopoIndex, TopoIndexConfig
+    from repro_torch.index.topo_index import host_scan
+    from repro_torch.kernels.hamming import as_int32_words, pack_codes_u32
+    from repro_torch.metrics.testing import noisy_copies, seed_diagram_arrays
+
+    rng = np.random.default_rng(17)
+    seeds = seed_diagram_arrays(rng, 32, 16)
+    d = noisy_copies(seeds, rng, 1100, 0.01, 0.05, device=cuda)
+    dq = noisy_copies(seeds, rng, 7, 0.01, 0.05, device=cuda)
+    cfg = TopoIndexConfig(embedding="sw", n_points=8, n_dirs=8,
+                          coarse="lsh", lsh_bits=128, lsh_overfetch=4)
+
+    def half(lo, hi):
+        return Diagrams(*(getattr(d, k)[lo:hi] for k in
+                          ("birth", "death", "dim", "valid")))
+
+    def check(index):
+        assert torch.equal(index._device_codes().cpu(),
+                           as_int32_words(pack_codes_u32(index._codes)))
+        emb_q = index.embed(dq).cpu().numpy()
+        for probes, m in ((1, 5), (1, 97), (3, 40)):
+            codes_q, mask_q = index._query_codes(emb_q, probes)
+            counters.reset()
+            got = index._coarse_candidates(emb_q, m, probes)
+            assert counters.snapshot()["hamming_scan"] == 1
+            np.testing.assert_array_equal(
+                got, host_scan(codes_q, index._codes, mask_q, m))
+        res = index.query(dq, k=5)  # k * lsh_overfetch = 20 candidates
+        codes_q, mask_q = index._query_codes(emb_q)
+        dist, rows = index._rank_candidates(
+            index.embed(dq), host_scan(codes_q, index._codes, mask_q, 20), 5)
+        np.testing.assert_array_equal(np.asarray(res.rows), rows)
+        np.testing.assert_array_equal(res.distances, dist)
+
+    index = TopoIndex(cfg, device=cuda)
+    index.add(half(0, 600))
+    check(index)
+    index.add(half(600, 1100))
+    check(index)
+    path = str(tmp_path / "index.npz")
+    index.save(path)
+    loaded = TopoIndex.load(path, device=cuda)
+    np.testing.assert_array_equal(loaded._codes, index._codes)
+    check(loaded)

@@ -348,3 +348,101 @@ def test_fig2_modules_import_neither_jax_nor_repro():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+# ---------------------------------------------------------------------------
+# The coarse stage's device scan (TopoIndex on CUDA, ShardedIndex anywhere),
+# run here through the plain hamming_scan: candidate rows bitwise the host
+# scan's.
+
+TIE_CFG = dict(embedding="sw", n_points=8, n_dirs=8, coarse="lsh",
+               lsh_bits=128)
+
+
+@pytest.fixture(scope="module")
+def tie_corpus():
+    """64 seed diagrams x 16 noisy copies (codes tie in crowds) and 7
+    queries (Q not a multiple of 4), both as port Diagrams on the CPU."""
+    from repro_torch.metrics.testing import noisy_copies, seed_diagram_arrays
+
+    rng = np.random.default_rng(64)
+    seeds = seed_diagram_arrays(rng, 64, 16)
+    return (noisy_copies(seeds, rng, 64 * 16, 0.01, 0.05, device="cpu"),
+            noisy_copies(seeds, rng, 7, 0.01, 0.05, device="cpu"))
+
+
+def _scans(index, emb_q, m, probes, chunk=None, pieces=None):
+    """(host scan, device scan) of the same query codes, the device scan
+    over ``pieces`` (row bounds) of the device codes, the last padded."""
+    from repro_torch.index.topo_index import device_scan, host_scan
+
+    codes_q, mask_q = index._query_codes(emb_q, probes)
+    n = len(index)
+    words = index._device_codes()
+    blocks = [(0, words)]
+    if pieces is not None:
+        cuts = [0, *pieces, n]
+        blocks = [(a, words[a:b]) for a, b in zip(cuts, cuts[1:])]
+        pad = torch.zeros((5, words.shape[1]), dtype=torch.int32)
+        blocks[-1] = (cuts[-2], torch.cat([blocks[-1][1], pad]))
+    return (host_scan(codes_q, index._codes, mask_q, m),
+            device_scan(codes_q, mask_q, blocks, n, m, "cpu", chunk=chunk))
+
+
+@pytest.mark.parametrize("probes", [1, 3])
+@pytest.mark.parametrize("chunk,pieces", [(None, None), (300, None),
+                                          (512, (400,)), (None, (97, 600))])
+def test_device_scan_equals_the_host_scan(tie_corpus, probes, chunk,
+                                          pieces):
+    d, dq = tie_corpus
+    index = TopoIndex(TopoIndexConfig(**TIE_CFG), device="cpu")
+    index.add(d)
+    emb_q = index.embed(dq).numpy()
+    for m in (1, 40, 97):
+        host, dev = _scans(index, emb_q, m, probes, chunk, pieces)
+        assert host.dtype == dev.dtype == np.int64
+        np.testing.assert_array_equal(dev, host)
+    # tie-heavy: the kept rows share their distances in crowds
+    codes_q, mask_q = index._query_codes(emb_q, probes)
+    x = codes_q[:, None, :] ^ index._codes[host]
+    if mask_q is not None:
+        x &= mask_q[:, None, :]
+    dist = np.unpackbits(x, axis=-1).sum(-1)
+    assert sum(len(np.unique(row)) for row in dist) < dist.size // 4
+
+
+def test_device_codes_follow_add_and_a_repro_save(tie_corpus, tmp_path):
+    """The device copy of the codes stays the host codes' words after an
+    add that follows a query and after loading a save of ``repro``'s; the
+    scans agree on it, and with ``repro``'s own coarse stage."""
+    from repro_torch.kernels.hamming import as_int32_words, pack_codes_u32
+
+    d, dq = tie_corpus
+    fields = [getattr(d, k).numpy() for k in FIELDS]
+    half = len(fields[0]) // 2
+    first = diagrams_from_numpy(*(a[:half] for a in fields), device="cpu")
+    rest = diagrams_from_numpy(*(a[half:] for a in fields), device="cpu")
+    index = TopoIndex(TopoIndexConfig(**TIE_CFG), device="cpu")
+    index.add(first)
+    emb_q = index.embed(dq).numpy()
+    np.testing.assert_array_equal(*_scans(index, emb_q, 30, 1))
+    index.query(dq, k=3)
+    index.add(rest)
+
+    def words_of(ix):
+        return as_int32_words(pack_codes_u32(ix._codes))
+
+    assert torch.equal(index._device_codes(), words_of(index))
+    np.testing.assert_array_equal(*_scans(index, emb_q, 30, 3, chunk=256))
+
+    index_j = TopoIndexJ(TopoIndexConfigJ(**TIE_CFG))
+    index_j.add(_repro_diagrams(fields))
+    path = str(tmp_path / "index.npz")
+    index_j.save(path)
+    loaded = TopoIndex.load(path, device="cpu")
+    assert torch.equal(loaded._device_codes(), words_of(loaded))
+    for probes in (1, 3):
+        host, dev = _scans(loaded, emb_q, 40, probes, chunk=512)
+        np.testing.assert_array_equal(dev, host)
+        np.testing.assert_array_equal(
+            host, index_j._coarse_candidates(emb_q, 40, probes=probes))
