@@ -46,6 +46,11 @@ port's nine paths:
   one ``domination`` launch a round for every threshold) and Fig 5b's ego
   nets (every 1-hop ego net of a BA(192, 3) host at n_pad 64, then PD_0
   through the plan with and without PrunIT);
+* the paper's own cell, ``configs/tda_ego.py``, sharded: the ego nets of a
+  BA(4096, 3) host through ``topological_signature_sharded`` at the
+  config's caps, at the config's batch and at 4096 graphs, on
+  ``make_serve_mesh()`` and on a 4-shard serve mesh that repeats the card;
+  bitwise the unsharded call and, on the first 64 graphs, the CPU port;
 * TopoStream over 4096 graphs of n_pad 64: an ego-decay stream (the
   hit-heavy regime) and a community-churn stream scoring drift with
   ``exact_w`` at ``auto:q0.99`` (the recompute-bound regime).  Each step's
@@ -57,7 +62,10 @@ port's nine paths:
   default bucket ladder (4096 requests of 6-55 vertices; every served
   Diagrams bitwise a direct execution of its recorded batch, one batch per
   bucket bitwise a CPU TopoServe's; then ``repack="on"`` with
-  ``method="both"``), the same round behind the SLO engine, the scrape
+  ``method="both"``), the same configuration behind ``TopoServe(mesh=)``
+  on 4 shards of the card over 1024 requests (every served Diagrams
+  bitwise a direct unsharded execution), the same round behind the SLO
+  engine, the scrape
   exporter and a ``serve_forever`` thread (``watch_overhead_pct``),
   SimilarityServe over the n64 index with the exact re-rank (4096 corpus
   graphs, 256 queries; sharded on ``make_index_mesh()``; the exact stage 1
@@ -160,6 +168,11 @@ SERVE_SIM_CORPUS, SERVE_SIM_QUERIES = 4096, 256
 SERVE_SIM_EXACT = (512, 32)
 SERVE_ORACLE_SAMPLES, SERVE_ORACLE_SEED = 64, 29
 SERVE_STREAM = (4, 1024, 16)
+# the sharded cells: tda_ego's ego nets come from a BA(4096, 3) host, one a
+# vertex; serve_topo_mesh is serve_topo's configuration on 4 shards of the
+# card over 1024 requests
+TDA_EGO_HOST, TDA_EGO_SEED = 4096, 5
+SERVE_MESH_REQUESTS, SERVE_MESH_SHARDS = 1024, 4
 # the caps benchmarks/fig2_clustering.py gives each probe
 FIG2_ER_CAPS = dict(edge_cap=128, tri_cap=512)
 FIG2_TWITTER_CAPS = dict(edge_cap=192, tri_cap=192)
@@ -2163,6 +2176,90 @@ def phase_ego_fig5b(dev, launches, recorder) -> dict:
     return out
 
 
+def phase_tda_ego(dev, launches, recorder) -> dict:
+    """The paper's own cell, ``configs/tda_ego.py``: the 1-hop ego nets of a
+    BA(4096, 3) host (degree filtration, superlevel) at n_pad 64 through
+    ``topological_signature_sharded(dim=1, method="both")`` at the
+    config's caps, at the config's batch (``graphs_per_device`` a shard)
+    and at all 4096 ego nets, on ``make_serve_mesh()`` and on a 4-shard
+    serve mesh that repeats the card.  Diagrams bitwise the unsharded call
+    on the card; the first shard of the config's batch (its first 64
+    graphs) bitwise the CPU port's; a batch the mesh does not divide
+    raises."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.tda_ego import config
+    from repro_torch.core.api import make_topo_plan, topological_signature
+    from repro_torch.core.persistence import diagrams_bitwise_equal
+    from repro_torch.data.ego import ego_batch, ego_sizes
+    from repro_torch.data.graphs import barabasi_albert
+    from repro_torch.launch import make_serve_mesh
+
+    t0 = time.perf_counter()
+    cfg = config()
+    kw = dict(dim=cfg.max_dim, method="both", sublevel=cfg.sublevel,
+              edge_cap=cfg.edge_cap, tri_cap=cfg.tri_cap)
+    host = barabasi_albert(TDA_EGO_SEED, 1, TDA_EGO_HOST, TDA_EGO_HOST, 3,
+                           device=dev)
+    f = host.degrees()[0].to(torch.float32)
+    egos = ego_batch(host.adj[0], f, cfg.n_pad, device=dev)
+    a = egos.adj.float()
+    tris = ((a @ a) * a).sum((-1, -2)) / 6
+    max_edges, max_tris = int(egos.n_edges().max()), int(tris.max())
+    check(max_edges <= cfg.edge_cap and max_tris <= cfg.tri_cap,
+          f"tda_ego: an ego net exceeds the caps ({max_edges} edges, "
+          f"{max_tris} triangles)")
+    gpd = cfg.graphs_per_device
+    d_cpu = topological_signature(_subset(egos, range(gpd)).to("cpu"), **kw)
+    out = {"phase": "tda_ego", "config": dataclasses.asdict(cfg),
+           "host_vertices": TDA_EGO_HOST, "egos": egos.batch,
+           "ego_size_max": int(ego_sizes(host.adj[0]).max()),
+           "ego_edges_max": max_edges, "ego_triangles_max": max_tris,
+           "runs": []}
+    meshes = (("serve_mesh", make_serve_mesh()),
+              ("4_shards", make_serve_mesh(devices=[dev] * 4)))
+    phase_counts = {k: 0 for k in launches}
+    for batch in ("config", "all"):
+        for label, mesh in meshes:
+            b = gpd * mesh.size if batch == "config" else egos.batch
+            g = egos if b == egos.batch else _subset(egos, range(b))
+            want = topological_signature(g, **kw)
+            plan = make_topo_plan(mesh=mesh, **kw)
+            d, counts, first_s = _drive(recorder, "tda_ego", plan.execute, g)
+            for k in launches:
+                phase_counts[k] += counts[k]
+            check(diagrams_bitwise_equal(d, want),
+                  f"tda_ego {label} at {b}: sharded and unsharded Diagrams "
+                  f"differ")
+            check(diagrams_bitwise_equal(
+                d_cpu, type(d)(*(getattr(d, k)[:gpd].cpu() for k in
+                                 ("birth", "death", "dim", "valid")))),
+                  f"tda_ego {label} at {b}: the first {gpd} graphs differ "
+                  f"from the CPU port's")
+            _, syncs = _counting_syncs(plan.execute, g)
+            steady = _host_ms(lambda: plan.execute(g))
+            out["runs"].append({
+                "mesh": label, "shape": mesh.shape, "graphs": b,
+                "first_ms": first_s * 1e3, "steady_ms": steady,
+                "graphs_per_s": b / (steady / 1e3), "host_syncs": syncs,
+                "launches": {k: counts[k] for k in launches},
+                "bitwise_unsharded": True, "cpu_bitwise_graphs": gpd})
+    try:
+        make_topo_plan(mesh=meshes[1][1], **kw).execute(
+            _subset(egos, range(6)))
+    except ValueError:
+        out["non_dividing_batch_raises"] = True
+    check(out.get("non_dividing_batch_raises", False),
+          "tda_ego: a batch of 6 on 4 shards did not raise")
+    check(all(phase_counts[k] > 0 for k in
+              ("kcore_peel", "domination", "gf2_reduce")),
+          "tda_ego: a main-path kernel was never launched")
+    out["launches"] = _add_counts(launches, phase_counts)
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def _sorted_pairs(d, dims):
     """Per graph and dimension, the (birth, death) pairs sorted by birth
     then death (absent rows as (inf, inf)) and their count: the tensors
@@ -2519,6 +2616,46 @@ def phase_serve_topo(dev, launches, recorder) -> tuple[dict, tuple]:
           "serve_topo: a main-path kernel was never launched")
     out["launches"] = _add_counts(launches, phase_counts)
     return out, bare
+
+
+def phase_serve_topo_mesh(dev, launches, recorder) -> dict:
+    """``serve_topo``'s configuration behind ``TopoServe(mesh=)`` on a
+    4-shard serve mesh that repeats the card, over 1024 requests of
+    ``serve_traffic``: a warm round, then the timed round (the main path's
+    run); every served Diagrams bitwise a direct unsharded execution of
+    its recorded batch."""
+    import gc
+
+    from repro_torch.launch import make_serve_mesh
+    from repro_torch.serve import TopoServe, TopoServeConfig
+
+    t0 = time.perf_counter()
+    reqs = serve_traffic(SERVE_MESH_REQUESTS, seed=0)
+    mesh = make_serve_mesh(devices=[dev] * SERVE_MESH_SHARDS)
+    srv = TopoServe(TopoServeConfig(**SERVE_TOPO_CFG), mesh=mesh)
+    _serve_round(srv, reqs)                  # warm round
+    srv.executed_batches.clear()
+    st0 = srv.stats
+    gc.collect()
+    (futs, submit_s, drain_s), counts, seconds = _drive(
+        recorder, "serve_topo_mesh", _serve_round, srv, reqs)
+    st = srv.stats
+    out = {"phase": "serve_topo_mesh", "requests": len(reqs),
+           "mesh": mesh.shape, "config": SERVE_TOPO_CFG,
+           "pad_batch_to": srv._pad_batch_to,
+           "wall_ms": seconds * 1e3, "submit_ms": submit_s * 1e3,
+           "drain_ms": drain_s * 1e3, "graphs_per_s": len(reqs) / seconds,
+           "batches": st["batches"] - st0["batches"],
+           "pad_rows": st["padded_rows"] - st0["padded_rows"],
+           "latency_by_bucket": _latency_by_bucket(futs),
+           "parity_rows": _served_parity(srv, dev)}
+    check(out["parity_rows"] == len(reqs),
+          "serve_topo_mesh: not every request was served")
+    check(counts["domination"] > 0 and counts["gf2_reduce"] > 0,
+          "serve_topo_mesh: a main-path kernel was never launched")
+    out["launches"] = _add_counts(launches, counts)
+    out["phase_s"] = time.perf_counter() - t0
+    return out
 
 
 def _http_get(url):
@@ -3729,6 +3866,7 @@ def main() -> int:
             emit(phase_auction_parity(dev, launches, recorder))
             emit(phase_strong_collapse_table3(dev, launches, recorder))
             emit(phase_ego_fig5b(dev, launches, recorder))
+            emit(phase_tda_ego(dev, launches, recorder))
             streams = {}
             for name, make, cfg in (
                     ("stream_ego_decay_n64",
@@ -3750,6 +3888,7 @@ def main() -> int:
             record, (reqs, serve_cfg, bare_s) = phase_serve_topo(
                 dev, launches, recorder)
             emit(record)
+            emit(phase_serve_topo_mesh(dev, launches, recorder))
             emit(phase_serve_watched(dev, launches, recorder, reqs,
                                      serve_cfg, bare_s))
             emit(phase_serve_similarity_n64(dev, launches, recorder))

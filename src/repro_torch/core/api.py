@@ -13,7 +13,12 @@ persistence kernels carry the work, on the CPU their plain versions do.
   group is persisted at its rung's caps.  Rows are scattered back into an
   input-order Diagrams padded to the single-phase row count.
 
-The JAX version's mesh-sharded plans are not part of this package yet.
+* ``mesh=`` (a :mod:`repro_torch.launch.mesh` grid, single-phase only):
+  the batch splits along dim 0 into ``mesh.size`` equal contiguous shards
+  in ``mesh.flat`` order, each shard runs the reduce -> persist body on its
+  device, and the rows come back in input order on the batch's device
+  (``topological_signature_sharded`` is the thin wrapper).  The shards
+  run one after another, also when the mesh names several cards.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch._device import device_context
 from repro_torch.core.graph import GraphBatch
 from repro_torch.core.persistence import (
     REDUCERS,
@@ -49,6 +55,7 @@ from repro_torch.core.repack import (
     select_classes,
     slice_to,
 )
+from repro_torch.launch.mesh import DeviceMesh
 
 REDUCTIONS = ("none", "coral", "prunit", "both")
 REPACK_MODES = ("off", "on")
@@ -73,6 +80,7 @@ class TopoPlanKey:
     tri_cap: int
     quad_cap: int
     reducer: str
+    mesh: Optional[DeviceMesh] = None  # None: one device, the batch's
     repack: str = "off"
     fixpoint: bool = False
     ladder: Optional[tuple[ShapeClass, ...]] = None
@@ -178,12 +186,10 @@ class TopoPlan:
         input-order output.
         """
         k = self.key
+        if k.mesh is not None:
+            return _execute_sharded(g, k), None
         if k.repack != "on":
-            gr = run_reduction(g, k.passes, k.dim, k.sublevel, k.fixpoint)
-            return persistence_diagrams_batched(
-                gr, max_dim=k.dim, edge_cap=k.edge_cap, tri_cap=k.tri_cap,
-                quad_cap=k.quad_cap, sublevel=k.sublevel,
-                reducer=k.reducer), None
+            return _pipeline(g, k), None
         gc, counts = self.reduce_phase(g)
         nv, ne, nt = (c.cpu().numpy() for c in counts)
         ladder = self.ladder_for(g.n)
@@ -201,6 +207,41 @@ class TopoPlan:
         report = RepackReport(ladder=ladder, class_index=cls_idx,
                               n_vertices=nv, n_edges=ne, n_triangles=nt)
         return out, report
+
+
+def _pipeline(g: GraphBatch, key: TopoPlanKey) -> Diagrams:
+    """The one reduce -> persist body of every single-phase execution."""
+    gr = run_reduction(g, key.passes, key.dim, key.sublevel, key.fixpoint)
+    return persistence_diagrams_batched(
+        gr, max_dim=key.dim, edge_cap=key.edge_cap, tri_cap=key.tri_cap,
+        quad_cap=key.quad_cap, sublevel=key.sublevel, reducer=key.reducer)
+
+
+def _execute_sharded(g: GraphBatch, key: TopoPlanKey) -> Diagrams:
+    """``_pipeline`` over ``key.mesh``: equal contiguous shards along dim 0
+    in ``mesh.flat`` order (``repro``'s ``P(mesh.axis_names)`` spec), each
+    on its device, one after another; input-order rows on the batch's
+    device.  A batch the mesh size does not divide raises: padding is the
+    caller's job (TopoServe pads its batches)."""
+    devices = key.mesh.flat
+    if g.batch % len(devices):
+        raise ValueError(
+            f"a batch of {g.batch} graphs is not evenly divisible by the "
+            f"mesh size {len(devices)} (axes {key.mesh.axis_names}); pad "
+            f"the batch to a multiple of it")
+    per = g.batch // len(devices)
+    parts = []
+    for p, dev in enumerate(devices):
+        rows = slice(p * per, (p + 1) * per)
+        shard = GraphBatch(adj=g.adj[rows].to(dev), mask=g.mask[rows].to(dev),
+                           f=g.f[rows].to(dev))
+        with device_context(dev):
+            parts.append(_pipeline(shard, key))
+    if len(parts) == 1:
+        return parts[0].to(g.device)
+    return Diagrams(*(torch.cat([getattr(d, name).to(g.device)
+                                 for d in parts])
+                      for name in ("birth", "death", "dim", "valid")))
 
 
 def _invalid_diagrams(b: int, s: int, device) -> Diagrams:
@@ -227,6 +268,7 @@ def make_topo_plan(
     tri_cap: int = 512,
     quad_cap: int = 0,
     reducer: str = "blocks",
+    mesh: Optional[DeviceMesh] = None,
     passes: Optional[tuple] = None,
     repack: str = "off",
     fixpoint: Optional[bool] = None,
@@ -235,7 +277,8 @@ def make_topo_plan(
     """Build or fetch the process-wide plan of this key (LRU, thread safe).
 
     ``passes`` overrides ``method``; ``fixpoint`` defaults to True exactly
-    when ``repack="on"``; ``ladder`` pins the persist shape classes.
+    when ``repack="on"``; ``ladder`` pins the persist shape classes;
+    ``mesh`` shards the single-phase plan's batch over the mesh's devices.
     """
     if passes is None:
         if method not in REDUCTIONS:
@@ -248,11 +291,16 @@ def make_topo_plan(
         raise ValueError(f"repack must be one of {REPACK_MODES}, got {repack!r}")
     if reducer not in REDUCERS:
         raise ValueError(f"reducer must be one of {REDUCERS}, got {reducer!r}")
+    if repack == "on" and mesh is not None:
+        raise ValueError(
+            "repack='on' is host-driven at the phase boundary and is not "
+            "supported under a mesh; shard the single-phase plan instead "
+            "(repack='off') or drive per-host two-phase plans")
     if fixpoint is None:
         fixpoint = repack == "on"
     key = TopoPlanKey(dim=dim, passes=passes, sublevel=bool(sublevel),
                       edge_cap=int(edge_cap), tri_cap=int(tri_cap),
-                      quad_cap=int(quad_cap), reducer=reducer,
+                      quad_cap=int(quad_cap), reducer=reducer, mesh=mesh,
                       repack=repack, fixpoint=bool(fixpoint),
                       ladder=None if ladder is None else tuple(ladder))
     with _PLAN_CACHE_LOCK:
@@ -304,6 +352,29 @@ def topological_signature(
     plan = make_topo_plan(dim=dim, method=method, sublevel=sublevel,
                           edge_cap=edge_cap, tri_cap=tri_cap,
                           quad_cap=quad_cap, reducer=reducer, repack=repack)
+    return plan.execute(g)
+
+
+def topological_signature_sharded(
+    g: GraphBatch,
+    mesh: DeviceMesh,
+    dim: int = 1,
+    method: str = "both",
+    sublevel: bool = True,
+    edge_cap: int = 256,
+    tri_cap: int = 512,
+    quad_cap: int = 0,
+    reducer: str = "blocks",
+) -> Diagrams:
+    """``topological_signature`` with the batch sharded over ``mesh``.
+
+    Thin wrapper over ``make_topo_plan(..., mesh=mesh)``: the batch must
+    divide the mesh size; the shards run one after another on their
+    devices and the Diagrams come back in input order on ``g``'s device.
+    """
+    plan = make_topo_plan(dim=dim, method=method, sublevel=sublevel,
+                          edge_cap=edge_cap, tri_cap=tri_cap,
+                          quad_cap=quad_cap, reducer=reducer, mesh=mesh)
     return plan.execute(g)
 
 

@@ -19,8 +19,10 @@ The loop is deliberately sync-first (``submit``/``drain`` under one lock) so
 it is trivially testable; ``serve_forever`` runs the same drain as a blocking
 loop for a dedicated thread, and ``serve_forever_async`` wraps it for an
 asyncio event loop.  The server runs on ``device`` (CUDA unless
-``device="cpu"``; without a card ``None`` raises).  ``repro``'s ``mesh=``
-(batches sharded over a serve mesh) is not part of the port yet.
+``device="cpu"``; without a card ``None`` raises).  With ``mesh=`` (e.g.
+:func:`repro_torch.launch.make_serve_mesh`) requests are packed on the
+mesh's first device, bucket batches are padded to a multiple of the mesh
+size and each executes as the bucket's sharded plan.
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ from repro_torch.core.api import TopoPlan, make_topo_plan
 from repro_torch.core.graph import GraphBatch, from_edge_lists
 from repro_torch.core.persistence import REDUCERS, Diagrams
 from repro_torch.core.repack import ShapeClass, default_ladder
+from repro_torch.launch.mesh import DeviceMesh
 from repro_torch.obs import flight as _flight
 from repro_torch.obs.context import DeadlineExceeded, resolve_submit
 from repro_torch.serve.futures import ServeFuture
@@ -232,6 +235,18 @@ def _count_triangles(edge_set, n_vertices: int) -> int:
     return int(np.trace(a @ a @ a) // 6)
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices name the same one (an index-less CUDA device
+    is the current card)."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda" or a.index == b.index:
+        return True
+    cur = torch.cuda.current_device()
+    return (cur if a.index is None else a.index) == (
+        cur if b.index is None else b.index)
+
+
 def _row(d: Diagrams, i: int) -> Diagrams:
     """Graph ``i``'s Diagrams row: views into ``d``'s tensors, no copy."""
     return Diagrams(*(getattr(d, k)[i] for k in _FIELDS))
@@ -248,19 +263,37 @@ class TopoServe:
     1
     """
 
-    def __init__(self, config: TopoServeConfig | None = None, device=None):
+    def __init__(self, config: TopoServeConfig | None = None, device=None,
+                 mesh: DeviceMesh | None = None):
         self.config = config or TopoServeConfig()
         if not self.config.buckets:
             raise ValueError("TopoServeConfig.buckets must be non-empty")
         if self.config.repack not in ("off", "on"):
             raise ValueError(
                 f"repack must be 'off' or 'on', got {self.config.repack!r}")
-        self.device = resolve_device(device)
+        if self.config.repack == "on" and mesh is not None:
+            raise ValueError(
+                "repack='on' is not supported under a mesh (the repack "
+                "phase boundary is host-driven); use repack='off'")
+        self.mesh = mesh
+        pad = max(1, self.config.pad_batch_to)
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            self.device = mesh.flat[0]
+            if device is not None and not _same_device(
+                    torch.device(device), self.device):
+                raise ValueError(
+                    f"device={device!r} disagrees with the mesh's first "
+                    f"device {self.device}; pass one of them")
+            # executed batches must divide the mesh, so round pad up to
+            # the next multiple of the mesh size
+            pad = -(-pad // mesh.size) * mesh.size
+        self._pad_batch_to = pad
         self._buckets = tuple(sorted(self.config.buckets))
         self._repack_ladder = (
             repack_ladder_for(self._buckets, self.config.quad_cap)
             if self.config.repack == "on" else None)
-        self._pad_batch_to = max(1, self.config.pad_batch_to)
         self._lock = threading.Lock()
         self._queues: dict[Bucket, deque] = {b: deque() for b in self._buckets}
         self._stopped = threading.Event()
@@ -343,7 +376,7 @@ class TopoServe:
         return make_topo_plan(
             dim=c.dim, method=c.method, sublevel=c.sublevel,
             edge_cap=bucket.edge_cap, tri_cap=bucket.tri_cap,
-            quad_cap=c.quad_cap, reducer=c.reducer,
+            quad_cap=c.quad_cap, reducer=c.reducer, mesh=self.mesh,
             repack=c.repack, ladder=self._repack_ladder,
         )
 

@@ -842,3 +842,59 @@ def test_topo_index_lsh_scans_on_the_card(cuda, tmp_path):
     loaded = TopoIndex.load(path, device=cuda)
     np.testing.assert_array_equal(loaded._codes, index._codes)
     check(loaded)
+
+
+def test_sharded_plan_on_the_card_matches_unsharded_and_cpu(cuda):
+    """``topological_signature_sharded`` on 1 and 4 shards of the one card:
+    Diagrams bitwise the unsharded call's and the CPU port's; each shard
+    launches the reduction and persistence kernels; a batch the mesh does
+    not divide raises."""
+    from repro_torch import counters
+    from repro_torch.core.api import (topological_signature,
+                                      topological_signature_sharded)
+    from repro_torch.core.persistence import diagrams_bitwise_equal
+    from repro_torch.data.graphs import erdos_renyi, with_degree_filtration
+    from repro_torch.launch import make_serve_mesh
+
+    g = with_degree_filtration(erdos_renyi(5, 24, 20, 18, 0.3, device=cuda))
+    kw = dict(dim=1, method="both", sublevel=False, edge_cap=96, tri_cap=160)
+    want = topological_signature(g, **kw)
+    assert diagrams_bitwise_equal(want.to("cpu"),
+                                  topological_signature(g.to("cpu"), **kw))
+    for mesh in (make_serve_mesh(), make_serve_mesh(devices=[cuda] * 4)):
+        counters.reset()
+        got = topological_signature_sharded(g, mesh, **kw)
+        snap = counters.snapshot()
+        assert got.birth.device == g.device
+        assert diagrams_bitwise_equal(got, want)
+        assert snap["gf2_reduce"] >= mesh.size
+        assert snap["kcore_peel"] > 0 and snap["domination"] > 0
+    with pytest.raises(ValueError, match="not evenly divisible"):
+        topological_signature_sharded(
+            g.index(torch.arange(6, device=cuda)),
+            make_serve_mesh(devices=[cuda] * 4), **kw)
+
+
+def test_meshed_server_on_the_card_matches_unmeshed(cuda):
+    """``TopoServe(mesh=)`` on 4 shards of the card: batches padded to a
+    multiple of 4, served Diagrams bitwise the unmeshed server's."""
+    from repro_torch.core.persistence import diagrams_bitwise_equal
+    from repro_torch.launch import make_serve_mesh
+    from repro_torch.serve import TopoServe, TopoServeConfig
+
+    rng = np.random.default_rng(9)
+    reqs = []
+    for _ in range(37):
+        n = int(rng.integers(3, 50))
+        iu, iv = np.nonzero(np.triu(rng.random((n, n)) < 0.15, 1))
+        reqs.append(([(int(u), int(v)) for u, v in zip(iu, iv)], n))
+    cfg = TopoServeConfig(method="both", max_batch=16)
+    meshed = TopoServe(cfg, mesh=make_serve_mesh(devices=[cuda] * 4))
+    plain = TopoServe(cfg, device=cuda)
+    futs = {s: [s.submit(e, n) for e, n in reqs] for s in (meshed, plain)}
+    for s in futs:
+        assert s.drain() == len(reqs)
+    for a, b in zip(futs[meshed], futs[plain]):
+        assert diagrams_bitwise_equal(a.result(timeout=0),
+                                      b.result(timeout=0))
+    assert meshed._pad_batch_to == 4 and meshed.stats["padded_rows"] > 0
