@@ -6,7 +6,7 @@
 Builds the ten hand-written kernels from the eight sources in
 ``src/repro_torch/csrc`` (one nvcc per source, in parallel), holds each
 kernel against its plain PyTorch version on the card, then drives the
-port's nine paths:
+port's ten paths:
 
 * reduce -> repack -> persist through ``make_topo_plan`` at three sizes: the
   n64 serve rung (4096 graphs), the DD rung of Table 2 (256 graphs of 320
@@ -77,6 +77,15 @@ port's nine paths:
   every launched kernel's ``kernels.*`` rows holding its launch count and
   a cost cell of the card; ``python -m repro_torch.obs slo check`` also
   runs against the exporter of the watched round.
+* the LM stack's serving path, which launches none of the ten kernels:
+  all ten architectures of the model zoo at ``reduced_config`` on one
+  drawn weight tree, prefill, two decode steps and greedy ``generate`` on
+  the card against the CPU port (``lm_families``); and qwen3-1.7b at full
+  width (28 layers, d_model 2048, 1.72 B parameters) from a seeded init:
+  8 token-stream prompts of 128 tokens, prefill and 64 greedy decode
+  steps timed, the decode logits held against one train-mode forward over
+  prompt and output, a 16-token prefill against the CPU port, and seeded
+  sampling twice (``lm_serve_qwen3``).
 
 CUDA results are compared with the same functions run on the CPU: bitwise
 where the computation is exact, within a stated tolerance where float sums
@@ -2972,6 +2981,304 @@ def phase_serve_stream(dev, launches, recorder) -> dict:
             "launches": _add_counts(launches, counts)}
 
 
+# ------------------------------------------------------------ LM stack
+
+# lm_families: every architecture of the zoo at reduced_config, the card
+# against the CPU port on one drawn weight tree: prefill of SEQ tokens into
+# an S_KV cache, two decode steps, and generate(max_new=8) from the first
+# GEN_PROMPT tokens (the prompt and prompt + 8 both divide into RWKV's
+# chunks, for the prefill and for the teacher-forced check)
+LM_BATCH, LM_SEQ, LM_S_KV, LM_GEN_PROMPT, LM_GEN_NEW = 2, 32, 40, 8, 8
+# lm_serve_qwen3: qwen3-1.7b at full width, 8 prompts of 128 tokens from the
+# token stream and 64 greedy decode steps (s_kv 192); one prompt of 16
+# tokens on the CPU port too; sampling at 0.8 for 16 new tokens, twice
+QWEN3 = dict(batch=8, prompt=128, steps=64, cpu_prompt=16, sample_new=16,
+             temperature=0.8)
+
+
+def _lm_close(got, want, cfg, rows=None, tol=None) -> tuple[float, bool]:
+    """Largest |got - want| (compared on the host) over ``rows`` (a bool
+    mask of the leading axes; all of them when None), and whether every
+    entry is finite and within ``tol`` = (rtol, atol), by default the
+    family's tolerance."""
+    import torch
+    from repro_torch.models.testing import tolerance
+
+    rtol, atol = tol or tolerance(cfg)
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    check(got.shape == want.shape, f"shape {tuple(got.shape)} vs "
+                                   f"{tuple(want.shape)}")
+    if rows is not None:
+        got, want = got[rows], want[rows]
+    err = (got - want).abs()
+    ok = (bool(torch.isfinite(got).all())
+          and bool((err <= atol + rtol * want.abs()).all()))
+    return (float(err.max()) if err.numel() else 0.0), ok
+
+
+def _lm_caches_close(got, want, cfg, keep=None) -> tuple[float, bool]:
+    """``_lm_close`` over every leaf of two cache trees; ``keep`` (B, S_kv)
+    selects the attention-cache rows of (layers, B, S_kv, ...) leaves."""
+    if isinstance(got, dict):
+        errs = [_lm_caches_close(got[k], want[k], cfg, keep) for k in got]
+        return max(e for e, _ in errs), all(ok for _, ok in errs)
+    rows = None if keep is None else (slice(None), keep.cpu())
+    return _lm_close(got, want, cfg, rows)
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _lm_family(i, arch, dev) -> dict:
+    """One reduced architecture on the card against the CPU port.  Tokens
+    behind an expert choice the CPU's router logits leave within the
+    rounding noise (``ambiguous_routing``) are not held."""
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.testing import (
+        ambiguous_routing, compare_generated, generated_held, random_extras,
+        random_params)
+    from repro_torch.serve.serve_step import generate
+
+    cpu = torch.device("cpu")
+    cfg = reduced_config(arch)
+    tree = random_params(cfg, i)
+    models = {d: convert.lm_params_from_numpy(tree, cfg, device=d)
+              for d in (cpu, dev)}
+    rng = np.random.default_rng(100 + i)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (LM_BATCH, LM_SEQ)))
+    nxt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (2, LM_BATCH, 1)))
+    extras = {k: torch.from_numpy(v)
+              for k, v in random_extras(cfg, LM_BATCH, rng).items()}
+    ex = {d: _tree_to(extras, d) for d in models}
+
+    def run(d, fn, off=None):
+        """fn(model) on device d; with the CPU run's ambiguous tokens."""
+        with torch.inference_mode(), \
+                ambiguous_routing(models[d], off) as found:
+            out = fn(models[d])
+        return out, (found[-1] if found and d == cpu else None)
+
+    # prefill into a cache on both devices
+    caches = {d: tf.init_caches(cfg, LM_BATCH, LM_S_KV, device=d)
+              for d in models}
+    lp, held, keep = {}, None, None
+    for d in models:
+        (lp[d], _), amb = run(d, lambda m, d=d: tf.forward(
+            m, cfg, tokens.to(d), mode="prefill", caches=caches[d], **ex[d]))
+        if amb is not None:
+            held = ~amb
+            keep = torch.cat([held, torch.ones(
+                (LM_BATCH, LM_S_KV - LM_SEQ), dtype=torch.bool)], 1)
+    errs = []
+    for what, (err, ok) in (
+            ("prefill logits", _lm_close(lp[dev], lp[cpu], cfg, held)),
+            ("prefill cache", _lm_caches_close(caches[dev], caches[cpu], cfg,
+                                               keep))):
+        check(ok, f"lm_families {arch}: {what} off by {err}")
+        errs.append(err)
+
+    # two decode steps, the first from the CPU's prefill cache on both
+    caches[dev] = _tree_to(caches[cpu], dev)
+    moe = cfg.family == "moe"
+    rows = torch.ones(LM_BATCH, dtype=torch.bool)
+    for step in range(2):
+        ld = {}
+        for d in models:
+            (ld[d], _), amb = run(d, lambda m, d=d: tf.forward(
+                m, cfg, nxt[step].to(d), mode="decode", caches=caches[d],
+                pos=LM_SEQ + step, **ex[d]), off=~rows[:, None])
+            if amb is not None:
+                rows = ~amb[:, 0]
+        e1, ok1 = _lm_close(ld[dev], ld[cpu], cfg, rows if moe else None)
+        e2, ok2 = _lm_caches_close(
+            caches[dev], caches[cpu], cfg,
+            rows[:, None].expand(LM_BATCH, LM_S_KV) if moe else None)
+        check(ok1 and ok2, f"lm_families {arch}: decode step {step} off by "
+                           f"{max(e1, e2)}")
+        errs += [e1, e2]
+
+    # greedy generation on both
+    prompt = tokens[:, :LM_GEN_PROMPT]
+    gen = {d: generate(models[d], cfg, prompt, LM_GEN_NEW, extras=ex[d],
+                       device=d) for d in models}
+    gen_held = generated_held(models[cpu], cfg, gen[cpu], LM_GEN_PROMPT,
+                              ex[cpu])
+    compared, ok = compare_generated(gen[dev], gen[cpu], LM_GEN_PROMPT,
+                                     gen_held)
+    check(ok, f"lm_families {arch}: greedy tokens differ where held")
+    return {"family": cfg.family, "max_abs_err": max(errs),
+            "prefill_positions_held": (LM_BATCH * LM_SEQ if held is None
+                                       else int(held.sum())),
+            "tokens_held": compared, "tokens": LM_BATCH * LM_GEN_NEW}
+
+
+def phase_lm_families(dev) -> dict:
+    """All ten LM architectures at reduced_config on the card against the
+    CPU port: prefill logits and caches, two decode steps, greedy
+    ``generate``; none of the TDA kernels launches."""
+    from repro_torch import counters
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models.testing import LM_TOLERANCE
+
+    counters.reset()
+    t0 = time.perf_counter()
+    archs = [a for a in ARCHS if a != "tda_ego"]
+    rows = {arch: _lm_family(i, arch, dev) for i, arch in enumerate(archs)}
+    launches = sum(counters.KERNEL_LAUNCHES.values())
+    check(launches == 0, "the LM path launched a TDA kernel")
+    check(len(rows) == 10, "not every architecture ran")
+    return {"phase": "lm_families", "tolerance": LM_TOLERANCE,
+            "archs": rows, "kernel_launches": launches,
+            "tokens_held": sum(r["tokens_held"] for r in rows.values()),
+            "tokens": sum(r["tokens"] for r in rows.values()),
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_lm_serve_qwen3(dev, card) -> dict:
+    """qwen3-1.7b at full width on the card: seeded init, 8 x 128 prompts
+    from the token stream, prefill and 64 greedy decode steps through the
+    serving steps (timed), then the three checks: decode logits against
+    one train-mode forward over prompt + output (the KV cache at full
+    width), a 16-token prefill on the card against the CPU port, and
+    seeded sampling twice."""
+    import torch
+    from repro_torch import counters
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.testing import (
+        FULL_WIDTH_TOL, FULL_WIDTH_TOLERANCE, held_positions)
+    from repro_torch.serve.serve_step import (
+        generate, make_decode_step, make_prefill_step)
+
+    counters.reset()
+    b, s0, steps = QWEN3["batch"], QWEN3["prompt"], QWEN3["steps"]
+    s_kv = s0 + steps
+    cfg = get_config("qwen3-1.7b")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()  # earlier phases' tensors
+    t0 = time.perf_counter()
+    model = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    check(abs(n_params - cfg.param_count()) < 1e-3 * n_params,
+          f"qwen3-1.7b holds {n_params} parameters, the config counts "
+          f"{cfg.param_count()}")
+    prompts = TokenStream(cfg.vocab_size, b, s0, seed=0).batch_at(
+        0, device=dev)["tokens"]
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+
+    def serve(n_steps):
+        caches = tf.init_caches(cfg, b, s_kv, device=dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        last, caches = prefill(model, prompts, caches, {})
+        tok = last.float().argmax(-1)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t
+        out = [tok]
+        t = time.perf_counter()
+        for i in range(n_steps):
+            tok, caches = decode(model, tok[:, None], caches, s0 + i, {})
+            out.append(tok)
+        torch.cuda.synchronize()
+        return torch.stack(out, 1), t_prefill, time.perf_counter() - t
+
+    serve(4)  # warm-up: cuBLAS handles and heuristics
+    new, prefill_s, decode_s = serve(steps)
+    peak = torch.cuda.max_memory_allocated()
+
+    # check 1: decode logits against one train-mode forward over prompt +
+    # output, at every generated position
+    seq = torch.cat([prompts, new[:, :steps]], 1)  # (b, s_kv)
+    with torch.inference_mode():
+        full, _ = tf.forward(model, cfg, seq, mode="train")
+        caches = tf.init_caches(cfg, b, s_kv, device=dev)
+        lp, caches = tf.forward(model, cfg, prompts, mode="prefill",
+                                caches=caches)
+        dec = [lp[:, -1]]
+        for i in range(steps):
+            ld, caches = tf.forward(model, cfg, seq[:, s0 + i:s0 + i + 1],
+                                    mode="decode", caches=caches, pos=s0 + i)
+            dec.append(ld[:, 0])
+    dec = torch.stack(dec, 1)  # the logits at positions s0 - 1 .. s_kv - 1
+    ref = full[:, s0 - 1:]
+    err1, ok1 = _lm_close(dec, ref, cfg, tol=FULL_WIDTH_TOL)
+    held = held_positions(ref, cfg, FULL_WIDTH_TOL)
+    argmax_ok = bool((dec.float().argmax(-1) == ref.float().argmax(-1))[
+        held].all())
+    check(ok1, f"lm_serve_qwen3: decode logits off the full forward by "
+               f"{err1}")
+    check(argmax_ok, "lm_serve_qwen3: decode argmax differs where held")
+    # the serving steps' tokens against this rerun's argmax (the same
+    # launches on the same inputs; recorded, not required)
+    serve_equal = torch.equal(new, dec.float().argmax(-1))
+    del full, dec, ref, caches
+
+    # check 2: a 16-token prefill on the card and on the CPU port
+    n16 = QWEN3["cpu_prompt"]
+    cpu_model = tf.Model(cfg, None, torch.device("meta"))
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()}, assign=True)
+    t = time.perf_counter()
+    with torch.inference_mode():
+        l_cpu, _ = tf.forward(cpu_model, cfg, prompts[:1, :n16].cpu())
+        l_card, _ = tf.forward(model, cfg, prompts[:1, :n16])
+    cpu_s = time.perf_counter() - t
+    del cpu_model
+    err2, ok2 = _lm_close(l_card, l_cpu, cfg, tol=FULL_WIDTH_TOL)
+    check(ok2, f"lm_serve_qwen3: card prefill off the CPU port by {err2}")
+
+    # check 3: seeded sampling gives the same tokens twice
+    sampled = [generate(model, cfg, prompts, QWEN3["sample_new"],
+                        temperature=QWEN3["temperature"],
+                        generator=torch.Generator(device=dev).manual_seed(1),
+                        device=dev) for _ in range(2)]
+    check(torch.equal(sampled[0], sampled[1]),
+          "lm_serve_qwen3: seeded sampling differs between two runs")
+    check(bool(((sampled[0] >= 0) & (sampled[0] < cfg.vocab_size)).all()),
+          "lm_serve_qwen3: a sampled token is out of range")
+    launches = sum(counters.KERNEL_LAUNCHES.values())
+    check(launches == 0, "the LM path launched a TDA kernel")
+    return {"phase": "lm_serve_qwen3", "card": card,
+            "config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                       "heads": [cfg.n_heads, cfg.n_kv_heads],
+                       "d_head": cfg.head_dim, "d_ff": cfg.d_ff,
+                       "vocab": cfg.vocab_size},
+            "params": n_params, "weights_gb": n_params * 4 / 1e9,
+            "init_s": init_s, "batch": b, "prompt": s0, "steps": steps,
+            "s_kv": s_kv, "prefill_ms": prefill_s * 1e3,
+            "prefill_tok_s": b * s0 / prefill_s,
+            "decode_ms_per_step": decode_s / steps * 1e3,
+            "decode_tok_s": b * steps / decode_s,
+            "peak_mem_gb": peak / 1e9,
+            "peak_mem_gb_of_phase": (peak - held_before) / 1e9,
+            "tolerance": FULL_WIDTH_TOLERANCE,
+            "check_decode_vs_full": {"max_abs_err": err1,
+                                     "argmax_held": int(held.sum()),
+                                     "positions": held.numel(),
+                                     "serve_tokens_rerun_equal": serve_equal},
+            "check_card_vs_cpu": {"tokens": n16, "max_abs_err": err2,
+                                  "seconds": cpu_s},
+            "check_sampling": {"temperature": QWEN3["temperature"],
+                               "new_tokens": QWEN3["sample_new"],
+                               "equal": True},
+            "kernel_launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
 def _kernel_key(span: str) -> str:
     """The ``counters.KERNEL_LAUNCHES`` key of a ``kernels.*`` span."""
     name = span.split(".", 1)[1]
@@ -3921,6 +4228,8 @@ def main() -> int:
         emit({"phase": "kernel_times", "at": at})
         emit(phase_hamming_large(dev))
         card = card_line()
+        emit(phase_lm_families(dev))
+        emit(phase_lm_serve_qwen3(dev, card))
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1

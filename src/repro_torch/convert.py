@@ -1,7 +1,8 @@
 """Carry state between ``repro`` and this package through numpy.
 
-The system has no weights; its state is the ``GraphBatch`` going in, the
-``DeltaBatch`` updates of a stream and the ``Diagrams`` coming out.  Both
+The TDA path has no weights; its state is the ``GraphBatch`` going in, the
+``DeltaBatch`` updates of a stream and the ``Diagrams`` coming out.  The LM
+stack's state is a model's parameter tree and its decode caches.  Both
 packages take and give numpy arrays here, so neither imports the other.
 """
 from __future__ import annotations
@@ -13,6 +14,8 @@ from repro_torch._device import resolve_device
 from repro_torch.core.delta import DeltaBatch
 from repro_torch.core.graph import GraphBatch
 from repro_torch.core.persistence import Diagrams, diagrams_to_numpy  # noqa: F401
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import Model
 
 
 def graph_batch_from_numpy(adj, mask, f, device=None) -> GraphBatch:
@@ -69,3 +72,114 @@ def delta_batch_to_numpy(d: DeltaBatch) -> tuple[np.ndarray, ...]:
     return tuple(getattr(d, k).detach().cpu().numpy()
                  for k in ("edge_u", "edge_v", "edge_op", "f_vertex",
                            "f_value", "drop_vertex"))
+
+
+# ------------------------------------------------------------ LM stack ----
+
+def _tensor(a) -> torch.Tensor:
+    """A numpy array as a tensor; a bfloat16 array (``np.asarray`` of a bf16
+    jax array) keeps its bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy; bfloat16 widens to float32 (exactly)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _tree_path(key: str) -> tuple[tuple[str, ...], tuple[int, ...]]:
+    """A state-dict key as (the reference tree's path, the layer indices):
+    ``segments.seg0_lg_period.2.locals.0.attn.w_q`` is
+    ``segments/seg0_lg_period/locals/attn/w_q`` at [2, 0]."""
+    parts = key.split(".")
+    return (tuple(p for p in parts if not p.isdigit()),
+            tuple(int(p) for p in parts if p.isdigit()))
+
+
+def _leaves(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def lm_params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> Model:
+    """A ``Model`` holding ``repro``'s LM parameter tree: nested dicts of
+    numpy arrays with a stack's layers on the leading axes
+    (``jax.tree.map(np.asarray, params)``).  Weights keep their (d_in,
+    d_out) layout; every leaf of the tree must be used."""
+    dev = resolve_device(device)
+    flat = dict(_leaves(tree))
+    model = Model(cfg, None, torch.device("meta"))
+    state, used = {}, set()
+    for key, like in model.state_dict().items():
+        path, idx = _tree_path(key)
+        if path not in flat:
+            raise KeyError(f"{key}: no {'/'.join(path)} in the tree")
+        t = _tensor(np.asarray(flat[path])[idx]).to(dev)
+        if t.shape != like.shape:
+            raise ValueError(f"{key}: shape {tuple(t.shape)}, the model "
+                             f"wants {tuple(like.shape)}")
+        state[key] = t.float()
+        used.add(path)
+    if used != set(flat):
+        raise KeyError(f"leaves the model does not hold: "
+                       f"{sorted('/'.join(p) for p in set(flat) - used)}")
+    model.load_state_dict(state, assign=True)
+    return model
+
+
+def lm_params_to_numpy(model: Model) -> dict:
+    """The model's parameters as ``repro``'s tree (stacked layers)."""
+    return stack_tree((k, _numpy(t)) for k, t in model.state_dict().items())
+
+
+def stack_tree(items) -> dict:
+    """``repro``'s nested tree from (state-dict key, array) pairs: the
+    layers of a stack go onto the leading axes of one array."""
+    stacks: dict = {}
+    for key, a in items:
+        path, idx = _tree_path(key)
+        stacks.setdefault(path, {})[idx] = a
+    tree: dict = {}
+    for path, parts in stacks.items():
+        if () in parts:
+            arr = parts[()]
+        else:
+            first = next(iter(parts.values()))
+            lead = tuple(max(i[a] for i in parts) + 1
+                         for a in range(len(next(iter(parts)))))
+            arr = np.empty(lead + first.shape, first.dtype)
+            for i, a in parts.items():
+                arr[i] = a
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = arr
+    return tree
+
+
+def lm_caches_from_numpy(tree, device=None):
+    """``repro``'s decode caches (nested dicts of numpy arrays, stacked
+    layers first; ``None`` where the reference has none) as tensors."""
+    dev = resolve_device(device)
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: lm_caches_from_numpy(v, dev) for k, v in tree.items()}
+    return _tensor(tree).to(dev)
+
+
+def lm_caches_to_numpy(caches):
+    """The port's caches as numpy arrays in the same tree (bfloat16 as
+    float32)."""
+    if caches is None:
+        return None
+    if isinstance(caches, dict):
+        return {k: lm_caches_to_numpy(v) for k, v in caches.items()}
+    return _numpy(caches)

@@ -1,8 +1,8 @@
-"""Serving substrate (counterpart of ``repro.serve``): the TopoServe
-batched persistence-diagram scheduler (topo_serve), the StreamServe
-stateful dynamic-graph session layer (stream_serve), and the
-SimilarityServe graph-similarity query path (similarity).  ``repro``'s LM
-prefill/decode steps (``serve_step``) come with the LM stack."""
+"""Serving substrate (counterpart of ``repro.serve``): LM prefill/decode
+steps and ``generate`` (serve_step, imported from its module), the
+TopoServe batched persistence-diagram scheduler (topo_serve), the
+StreamServe stateful dynamic-graph session layer (stream_serve), and the
+SimilarityServe graph-similarity query path (similarity)."""
 from repro_torch.serve.futures import FutureCancelled, ServeFuture
 from repro_torch.serve.similarity import (
     SimilarityFuture,

@@ -18,7 +18,9 @@ The auction kernels run the plain solvers' float operations round for
 round, so assignments, prices, round counts and convergence flags are held
 bitwise; the totals, f32 sums of the same terms in another order, within
 ``metrics.testing.AUCTION_TOTAL_TOLERANCE``.  The Hamming kernel and the
-ShardedIndex's candidates, ids, distances and clouds are held bitwise.  ``exact_w`` on the card is
+ShardedIndex's candidates, ids, distances and clouds are held bitwise.
+The LM stack's greedy tokens on the card equal the CPU port's wherever the
+CPU logits decide the argmax beyond rtol 2e-2, atol 2e-2.  ``exact_w`` on the card is
 held against the CPU port within rtol 1e-6, atol 1e-5: the expanded totals
 are f32 sums in another order, the collapsed W^q float64 sums in another
 order rounded once, and a square root of a total near 0 magnifies an ulp.
@@ -898,3 +900,33 @@ def test_meshed_server_on_the_card_matches_unmeshed(cuda):
         assert diagrams_bitwise_equal(a.result(timeout=0),
                                       b.result(timeout=0))
     assert meshed._pad_batch_to == 4 and meshed.stats["padded_rows"] > 0
+
+
+# ------------------------------------------------------------ the LM stack
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "olmoe-1b-7b"])
+def test_lm_generate_on_the_card_matches_cpu(cuda, arch):
+    """A reduced dense and a reduced MoE model's greedy ``generate`` on the
+    card against the CPU port on the same drawn weights: the new tokens
+    equal in each row up to the first position whose argmax the CPU's
+    logits do not decide beyond rtol 2e-2, atol 2e-2 (or where an expert
+    choice is ambiguous)."""
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.models.testing import (
+        compare_generated, generated_held, random_params)
+    from repro_torch.serve.serve_step import generate
+
+    cfg = reduced_config(arch)
+    tree = random_params(cfg, 3)
+    cpu = lm_params_from_numpy(tree, cfg, device="cpu")
+    card = lm_params_from_numpy(tree, cfg, device=cuda)
+    prompt = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (4, 16)))
+    got = generate(card, cfg, prompt, 16, device=cuda)
+    want = generate(cpu, cfg, prompt, 16, device="cpu")
+    assert got.device.type == "cuda" and got.shape == want.shape
+    assert torch.equal(got[:, :16].cpu(), prompt)
+    compared, ok = compare_generated(got, want, 16,
+                                     generated_held(cpu, cfg, want, 16))
+    assert ok and compared >= 8, compared

@@ -340,7 +340,13 @@ def test_tda_ego_config_matches_repro():
 
 def test_new_modules_import_neither_jax_nor_repro():
     code = ("import sys, repro_torch.launch, repro_torch.core.api, "
-            "repro_torch.configs, repro_torch.serve.topo_serve\n"
+            "repro_torch.configs, repro_torch.serve.topo_serve, "
+            "repro_torch.core.persistence_ref, repro_torch.models, "
+            "repro_torch.models.transformer, repro_torch.models.testing, "
+            "repro_torch.configs.registry, repro_torch.data.tokens, "
+            "repro_torch.serve.serve_step, repro_torch.convert\n"
+            "from repro_torch.configs.registry import ARCHS, get_config\n"
+            "[get_config(a) for a in ARCHS]\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'benchmarks')]\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
