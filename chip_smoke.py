@@ -85,7 +85,21 @@ port's ten paths:
   8 token-stream prompts of 128 tokens, prefill and 64 greedy decode
   steps timed, the decode logits held against one train-mode forward over
   prompt and output, a 16-token prefill against the CPU port, and seeded
-  sampling twice (``lm_serve_qwen3``).
+  sampling twice (``lm_serve_qwen3``);
+* the LM stack's training half, which launches none of the ten kernels
+  either: one ``make_train_step`` (grad_accum 2) of each reduced
+  architecture on the card against the CPU port from one drawn tree
+  (loss, grad norm, every gradient leaf, every update leaf), and
+  ``tests/test_system.py``'s restart check through ``launch.train.train``
+  (14 steps against 7 + 7 resumed from a checkpoint; whether bitwise is
+  recorded) (``lm_train_families``); then qwen3-1.7b at full width
+  through ``launch.train.train`` (8 x 128 tokens, grad_accum 2, 2
+  warm-up and 8 timed steps: step ms, tokens/s, the model-FLOP share of
+  the bf16 peak, peak memory, a falling loss), ``adamw_update`` alone, a
+  checkpoint round trip of the full TrainState through
+  ``train/checkpoint.py`` (bitwise, and one more step from each state
+  equal), and one gradient of a 16-token sequence against the CPU port
+  (``lm_train_qwen3``).
 
 CUDA results are compared with the same functions run on the CPU: bitwise
 where the computation is exact, within a stated tolerance where float sums
@@ -119,6 +133,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 
 # The card's peaks and every kernel row's bound come from
 # repro_torch.launch.roofline (imported where used: src/ joins sys.path in
@@ -229,6 +244,10 @@ class SmokeFailure(RuntimeError):
 
 
 def emit(obj: dict) -> None:
+    """Print one record; a phase's carries ``at_s``, the seconds since the
+    script started, so each phase's share of the run reads off."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -3279,6 +3298,324 @@ def phase_lm_serve_qwen3(dev, card) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+# the LM stack's training half: one make_train_step (grad_accum 2) a
+# reduced architecture, card against the CPU port; the restart check of
+# tests/test_system.py (14 steps against 7 + 7 resumed); qwen3-1.7b at full
+# width through launch.train.train (2 warm-up and 8 timed steps), AdamW
+# alone, a checkpoint round trip of the full TrainState, and one gradient
+# of a 16-token sequence, card against the CPU port
+LM_TRAIN = dict(batch=4, seq=32, grad_accum=2, lr=1e-3)
+RESTART = dict(steps=14, half=7, batch=2, seq=32, seed=3)
+RESTART_RTOL, RESTART_ATOL = 1e-5, 1e-6
+QWEN3_TRAIN = dict(batch=8, seq=128, grad_accum=2, lr=1e-3, warmup=2,
+                   timed=8, adamw_reps=3, ckpt_batch=2, grad_tokens=16)
+
+
+def _train_tree(cfg, seed):
+    """The numpy tree a family's train step starts from: every leaf drawn
+    (``random_params``), but the hybrid's from its seeded init (its noised
+    SSM constants give NaN gradients, in ``repro`` as here)."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.testing import random_params
+
+    if cfg.family != "hybrid":
+        return random_params(cfg, seed)
+    return convert.lm_params_to_numpy(tf.init_params(
+        cfg, torch.Generator().manual_seed(seed), device="cpu"))
+
+
+def _restart_check(dev) -> dict:
+    """``tests/test_system.py``'s restart check through the port's
+    ``launch.train.train`` on the card: qwen3 reduced, 14 uninterrupted
+    steps against 7 + 7 resumed from a checkpoint."""
+    import numpy as np
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.launch.train import train
+
+    r = RESTART
+    kw = dict(batch=r["batch"], seq=r["seq"], ckpt_every=r["half"],
+              seed=r["seed"], device=dev)
+    with tempfile.TemporaryDirectory() as d, \
+            contextlib.redirect_stdout(io.StringIO()):
+        full = train("qwen3-1.7b", steps=r["steps"], ckpt_dir=f"{d}/a", **kw)
+        train("qwen3-1.7b", steps=r["half"], ckpt_dir=f"{d}/b", **kw)
+        resumed = train("qwen3-1.7b", steps=r["steps"], ckpt_dir=f"{d}/b",
+                        **kw)
+    close = bool(np.isclose(resumed["final_loss"], full["final_loss"],
+                            rtol=RESTART_RTOL, atol=RESTART_ATOL))
+    check(resumed["steps_run"] == r["steps"] - r["half"],
+          "lm_train_families: the resumed run did not start at the "
+          "checkpoint")
+    check(close, f"lm_train_families: resumed final loss "
+                 f"{resumed['final_loss']} vs {full['final_loss']}")
+    return {"final_loss": [full["final_loss"], resumed["final_loss"]],
+            "tolerance": f"rtol {RESTART_RTOL}, atol {RESTART_ATOL}",
+            "bitwise": resumed["losses"] == full["losses"][r["half"]:],
+            "losses_after_restart": [full["losses"][r["half"]:],
+                                     resumed["losses"]]}
+
+
+def phase_lm_train_families(dev) -> dict:
+    """All ten LM architectures at reduced_config: one ``make_train_step``
+    (grad_accum 2, batch 4 x 32, lr 1e-3) on the card and on the CPU port
+    from one numpy tree (``train.testing.train_step_agreement``), then the
+    restart check on qwen3; none of the TDA kernels launches."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch import counters
+    from repro_torch.configs.registry import ARCHS, reduced_config
+    from repro_torch.models.testing import random_extras
+    from repro_torch.train.testing import (
+        TRAIN_TOLERANCE, train_step_agreement)
+
+    gc.collect()  # the serving phase's model
+    torch.cuda.empty_cache()
+    counters.reset()
+    t0 = time.perf_counter()
+    c = LM_TRAIN
+    rows = {}
+    for i, arch in enumerate(a for a in ARCHS if a != "tda_ego"):
+        cfg = reduced_config(arch)
+        rng = np.random.default_rng(200 + i)
+        batch = {"tokens": rng.integers(0, cfg.vocab_size,
+                                        (c["batch"], c["seq"]))}
+        batch.update(random_extras(cfg, c["batch"], rng))
+        if cfg.mrope_sections:
+            batch["mrope_positions"] = rng.integers(
+                0, 64, (c["batch"], c["seq"], 3))
+        extra = tuple(k for k in batch if k != "tokens")
+        row = train_step_agreement(cfg, _train_tree(cfg, i), batch,
+                                   (dev, torch.device("cpu")),
+                                   c["grad_accum"], c["lr"], extra)
+        check(row["ok"], f"lm_train_families {arch}: card off the CPU port: "
+                         f"{row}")
+        rows[arch] = {"family": cfg.family, **row}
+    restart = _restart_check(dev)
+    launches = sum(counters.KERNEL_LAUNCHES.values())
+    check(launches == 0, "the LM training path launched a TDA kernel")
+    check(len(rows) == 10, "not every architecture ran")
+    return {"phase": "lm_train_families", "tolerance": TRAIN_TOLERANCE,
+            "archs": rows, "restart": restart, "kernel_launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
+def _state_bytes(model) -> int:
+    """A TrainState's bytes: f32 parameters, m and v, and the step."""
+    return 3 * 4 * sum(p.numel() for p in model.parameters()) + 4
+
+
+def _states_equal(a, b) -> bool:
+    import torch
+    from repro_torch.train.checkpoint import _flatten
+
+    la, lb = _flatten(a), _flatten(b)
+    return ([n for n, _ in la] == [n for n, _ in lb]
+            and all(x.dtype == y.dtype and torch.equal(x, y)
+                    for (_, x), (_, y) in zip(la, lb)))
+
+
+def _checkpoint_round_trip(cfg, dev) -> dict:
+    """Save and restore a full-width TrainState after one step, through
+    ``train/checkpoint.py`` into ``tempfile.gettempdir()``: the restored
+    state bitwise the saved one, and one more step from each equal.  Where
+    the free space cannot hold the state, the model keeps its width and
+    drops blocks until it fits (recorded)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.train_step import TrainState, make_train_step
+
+    tmp = tempfile.gettempdir()
+    free = shutil.disk_usage(tmp).free
+    full_bytes = _state_bytes(tf.Model(cfg, None, torch.device("meta")))
+    blocks = cfg.n_layers
+    while blocks > 1 and full_bytes * blocks / cfg.n_layers > 0.8 * free:
+        blocks -= 1
+    rcfg = dataclasses.replace(cfg, n_layers=blocks)
+    model = tf.init_params(rcfg, torch.Generator(device=dev).manual_seed(2),
+                           device=dev)
+    state = TrainState(params=model, opt=adamw_init(model))
+    data = TokenStream(cfg.vocab_size, QWEN3_TRAIN["ckpt_batch"],
+                       QWEN3_TRAIN["seq"], seed=2).batch_at(0, device=dev)
+    step = make_train_step(rcfg, base_lr=QWEN3_TRAIN["lr"])
+    state, _ = step(state, data)  # nonzero moments, step 1
+    nbytes = _state_bytes(model)
+    d = tempfile.mkdtemp(prefix="ckpt_", dir=tmp)
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ckpt.save(d, 1, state, stream_state={"seed": 2, "step": 1})
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        restored, at, sstate = ckpt.restore(d, state, device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    equal = _states_equal(restored, state)
+    check(equal and at == 1 and sstate == {"seed": 2, "step": 1},
+          "lm_train_qwen3: the restored TrainState differs from the saved")
+    nxt = TokenStream(cfg.vocab_size, QWEN3_TRAIN["ckpt_batch"],
+                      QWEN3_TRAIN["seq"], seed=2).batch_at(1, device=dev)
+    state, m_live = step(state, nxt)
+    restored, m_rest = step(restored, nxt)
+    step_equal = _states_equal(restored, state)
+    check(step_equal and m_live["loss"].item() == m_rest["loss"].item(),
+          "lm_train_qwen3: a step from the restored state differs from one "
+          "from the live state")
+    return {"tmp_free_gb": free / 1e9, "blocks": blocks,
+            "cut": blocks != cfg.n_layers, "state_gb": nbytes / 1e9,
+            "save_s": save_s, "save_gb_s": nbytes / save_s / 1e9,
+            "restore_s": restore_s, "restore_gb_s": nbytes / restore_s / 1e9,
+            "restored_bitwise": equal, "next_step_bitwise": step_equal}
+
+
+def phase_lm_train_qwen3(dev, card) -> dict:
+    """qwen3-1.7b at full width on the card: ``launch.train.train`` (batch
+    8 x 128, grad_accum 2, lr 1e-3, no checkpoints; 2 warm-up and 8 timed
+    steps), AdamW alone on the full state, a checkpoint round trip of the
+    full TrainState, and one gradient of a 16-token sequence against the
+    CPU port."""
+    import numpy as np
+    import contextlib
+    import gc
+    import io
+
+    import torch
+    from repro_torch import counters
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch.roofline import (
+        BF16_TC_FLOPS_PER_S, bound_ms, model_flop_share)
+    from repro_torch.launch.train import train
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.testing import FULL_WIDTH_GRAD_REL, rel_frobenius
+    from repro_torch.train.optimizer import adamw_init, adamw_update
+    from repro_torch.train.train_step import TrainState, accumulate_grads
+
+    counters.reset()
+    q = QWEN3_TRAIN
+    cfg = get_config("qwen3-1.7b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+
+    # 1. the training loop at full width
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        run = train("qwen3-1.7b", steps=q["warmup"] + q["timed"],
+                    batch=q["batch"], seq=q["seq"], ckpt_dir=None,
+                    reduced=False, lr=q["lr"], grad_accum=q["grad_accum"],
+                    device=dev, log_every=1)
+    peak = torch.cuda.max_memory_allocated()
+    # the parameters the model holds (param_count leaves out the norms)
+    n_params = sum(p.numel() for p in tf.Model(
+        cfg, None, torch.device("meta")).parameters())
+    timed = run["step_s"][q["warmup"]:]
+    step_s = float(np.mean(timed))
+    tokens = q["batch"] * q["seq"]
+    losses = run["losses"]
+    check(all(np.isfinite(losses)), f"lm_train_qwen3: loss {losses}")
+    check(float(np.mean(losses[-3:])) < losses[0],
+          f"lm_train_qwen3: the loss did not fall: {losses}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. AdamW alone on a full-width state (one step's gradients)
+    model = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+                           device=dev)
+    state = TrainState(params=model, opt=adamw_init(model))
+    data = TokenStream(cfg.vocab_size, q["ckpt_batch"], q["seq"],
+                       seed=1).batch_at(0, device=dev)
+    grads, _ = accumulate_grads(model, cfg, data)
+    times = []
+    for _ in range(q["adamw_reps"] + 1):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        _, state.opt, _ = adamw_update(grads, state.opt, model,
+                                       base_lr=q["lr"])
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    adamw_ms = float(np.mean(times[1:]))
+    # the least AdamW could move: g, p, m, v read and p, m, v written
+    adamw_bound, by = bound_ms(7 * 4 * n_params, {"lane": 12 * n_params})
+    del grads, state, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. the checkpoint round trip of a full TrainState
+    round_trip = _checkpoint_round_trip(cfg, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. one gradient of a 16-token sequence, card against the CPU port
+    model = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(3),
+                           device=dev)
+    cpu_model = tf.Model(cfg, None, torch.device("meta"))
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()}, assign=True)
+    seq = TokenStream(cfg.vocab_size, 1, q["grad_tokens"], seed=3).batch_at(
+        0, device=dev)
+    g_card, l_card = accumulate_grads(model, cfg, seq)
+    t = time.perf_counter()
+    g_cpu, l_cpu = accumulate_grads(cpu_model, cfg,
+                                    {"tokens": seq["tokens"].cpu()})
+    cpu_s = time.perf_counter() - t
+    rels = {k: rel_frobenius(g_card[k].cpu().numpy(), g_cpu[k].numpy())
+            for k in g_cpu}
+    worst = max(rels, key=rels.get)
+    finite = all(bool(torch.isfinite(g).all()) for g in g_card.values())
+    check(finite and rels[worst] <= FULL_WIDTH_GRAD_REL,
+          f"lm_train_qwen3: card gradient off the CPU port's: {worst} "
+          f"{rels[worst]}")
+    del g_card, g_cpu, cpu_model, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    launches = sum(counters.KERNEL_LAUNCHES.values())
+    check(launches == 0, "the LM training path launched a TDA kernel")
+    return {"phase": "lm_train_qwen3", "card": card, "params": n_params,
+            "batch": q["batch"], "seq": q["seq"],
+            "grad_accum": q["grad_accum"], "lr": q["lr"],
+            "step_ms": step_s * 1e3, "step_ms_each": [x * 1e3 for x in timed],
+            "warmup_step_ms": [x * 1e3 for x in run["step_s"][:q["warmup"]]],
+            "tokens_s": tokens / step_s,
+            "model_flop_share": model_flop_share(n_params, tokens, step_s),
+            "bf16_peak_flops": BF16_TC_FLOPS_PER_S,
+            "peak_mem_gb": peak / 1e9,
+            "peak_mem_gb_of_phase": (peak - held_before) / 1e9,
+            "losses": losses, "stragglers": run["stragglers"],
+            "adamw_ms": adamw_ms, "adamw_ms_each": times[1:],
+            "adamw_bound_ms": adamw_bound, "adamw_bound_by": by,
+            "checkpoint": round_trip,
+            "grad_card_vs_cpu": {"tokens": q["grad_tokens"],
+                                 "loss": [l_card.item(), l_cpu.item()],
+                                 "max_rel": rels[worst], "leaf": worst,
+                                 "median_rel": float(np.median(
+                                     list(rels.values()))),
+                                 "tolerance": FULL_WIDTH_GRAD_REL,
+                                 "cpu_s": cpu_s},
+            "kernel_launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
 def _kernel_key(span: str) -> str:
     """The ``counters.KERNEL_LAUNCHES`` key of a ``kernels.*`` span."""
     name = span.split(".", 1)[1]
@@ -4129,7 +4466,6 @@ def main() -> int:
 
     dev = torch.device("cuda")
     launches = {k: 0 for k in REPLACES}
-    t_start = time.perf_counter()
     try:
         emit(phase_build())
         emit(phase_kernel_checks(dev))
@@ -4230,10 +4566,12 @@ def main() -> int:
         card = card_line()
         emit(phase_lm_families(dev))
         emit(phase_lm_serve_qwen3(dev, card))
+        emit(phase_lm_train_families(dev))
+        emit(phase_lm_train_qwen3(dev, card))
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1
-    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    emit({"phase": "done", "seconds": time.perf_counter() - T_START})
     print(card, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

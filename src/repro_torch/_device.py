@@ -22,6 +22,18 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices name the same one (an index-less CUDA device
+    is the current card)."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda" or a.index == b.index:
+        return True
+    cur = torch.cuda.current_device()
+    return (cur if a.index is None else a.index) == (
+        cur if b.index is None else b.index)
+
+
 def device_context(device: torch.device):
     """``torch.cuda.device(device)`` on CUDA, a no-op context elsewhere: a
     serving thread enters it so its launches go to its server's card."""

@@ -2,8 +2,9 @@
 
 The TDA path has no weights; its state is the ``GraphBatch`` going in, the
 ``DeltaBatch`` updates of a stream and the ``Diagrams`` coming out.  The LM
-stack's state is a model's parameter tree and its decode caches.  Both
-packages take and give numpy arrays here, so neither imports the other.
+stack's state is a model's parameter tree, its decode caches and, in
+training, AdamW's moments.  Both packages take and give numpy arrays here,
+so neither imports the other.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ from repro_torch.core.graph import GraphBatch
 from repro_torch.core.persistence import Diagrams, diagrams_to_numpy  # noqa: F401
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Model
+from repro_torch.train.optimizer import AdamWState
+from repro_torch.train.train_step import TrainState
 
 
 def graph_batch_from_numpy(adj, mask, f, device=None) -> GraphBatch:
@@ -108,12 +111,9 @@ def _leaves(tree, prefix=()):
             yield prefix + (k,), v
 
 
-def lm_params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> Model:
-    """A ``Model`` holding ``repro``'s LM parameter tree: nested dicts of
-    numpy arrays with a stack's layers on the leading axes
-    (``jax.tree.map(np.asarray, params)``).  Weights keep their (d_in,
-    d_out) layout; every leaf of the tree must be used."""
-    dev = resolve_device(device)
+def _state_from_tree(tree: dict, cfg: ModelConfig, dev) -> dict:
+    """{state-dict key: f32 tensor on ``dev``} from ``repro``'s tree, with
+    every key of the model filled and every leaf of the tree used."""
     flat = dict(_leaves(tree))
     model = Model(cfg, None, torch.device("meta"))
     state, used = {}, set()
@@ -130,7 +130,17 @@ def lm_params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> Model:
     if used != set(flat):
         raise KeyError(f"leaves the model does not hold: "
                        f"{sorted('/'.join(p) for p in set(flat) - used)}")
-    model.load_state_dict(state, assign=True)
+    return state
+
+
+def lm_params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> Model:
+    """A ``Model`` holding ``repro``'s LM parameter tree: nested dicts of
+    numpy arrays with a stack's layers on the leading axes
+    (``jax.tree.map(np.asarray, params)``).  Weights keep their (d_in,
+    d_out) layout; every leaf of the tree must be used."""
+    model = Model(cfg, None, torch.device("meta"))
+    model.load_state_dict(_state_from_tree(tree, cfg, resolve_device(device)),
+                          assign=True)
     return model
 
 
@@ -183,3 +193,26 @@ def lm_caches_to_numpy(caches):
     if isinstance(caches, dict):
         return {k: lm_caches_to_numpy(v) for k, v in caches.items()}
     return _numpy(caches)
+
+
+def train_state_from_numpy(params_tree: dict, m_tree: dict, v_tree: dict,
+                           step: int, cfg: ModelConfig,
+                           device=None) -> TrainState:
+    """A ``TrainState`` from ``repro``'s: the parameter tree and AdamW's
+    two moment trees (shaped as the parameters) as numpy, and the step."""
+    dev = resolve_device(device)
+    return TrainState(
+        params=lm_params_from_numpy(params_tree, cfg, dev),
+        opt=AdamWState(
+            step=torch.tensor(int(step), dtype=torch.int32, device=dev),
+            m=_state_from_tree(m_tree, cfg, dev),
+            v=_state_from_tree(v_tree, cfg, dev)))
+
+
+def train_state_to_numpy(state: TrainState) -> tuple[dict, dict, dict, int]:
+    """(params, m, v, step): the trees as ``repro`` holds them (stacked
+    layers), f32 numpy, and the step as an int."""
+    return (lm_params_to_numpy(state.params),
+            stack_tree((k, _numpy(t)) for k, t in state.opt.m.items()),
+            stack_tree((k, _numpy(t)) for k, t in state.opt.v.items()),
+            int(state.opt.step))

@@ -64,3 +64,15 @@ def bound_ms(bytes_accessed: float,
     t = roofline_terms(bytes_accessed, ops)
     return (t["bound_s"] * 1e3,
             "bytes" if t["dominant"] == "memory" else "operations")
+
+# dense bf16 tensor-core FLOP/s (H100 SXM data sheet, no sparsity; an FMA
+# counts as two): the denominator of a train step's model-FLOP share,
+# 6 · parameters · tokens / step seconds
+BF16_TC_FLOPS_PER_S = 989.4e12
+
+
+def model_flop_share(n_params: int, tokens: int, step_s: float) -> float:
+    """The share of the card's dense bf16 peak that a train step's model
+    FLOPs (6 · parameters · tokens: forward and backward, no
+    recomputation) take over ``step_s`` seconds."""
+    return 6.0 * n_params * tokens / step_s / BF16_TC_FLOPS_PER_S

@@ -23,6 +23,7 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.models import rwkv as rw
@@ -301,11 +302,19 @@ def _apply_dec_block(p, x, ctx, cache):
     return x, new_cache
 
 
-def _run(blocks, x, stacked_cache, fn):
+def _run(blocks, x, stacked_cache, fn, remat: bool = False):
     """Run ``fn(block, x, layer_cache)`` over a stack of blocks in order
-    (the reference's ``lax.scan``); returns (x, the stacked cache)."""
+    (the reference's ``lax.scan``); returns (x, the stacked cache).
+
+    ``remat``: each block's activations are recomputed in the backward
+    instead of kept (the reference's ``jax.checkpoint`` of its scan
+    body)."""
     for i, blk in enumerate(blocks):
-        x, _ = fn(blk, x, _layer(stacked_cache, i))
+        if remat:
+            x, _ = checkpoint(fn, blk, x, _layer(stacked_cache, i),
+                              use_reentrant=False)
+        else:
+            x, _ = fn(blk, x, _layer(stacked_cache, i))
     return x, stacked_cache
 
 
@@ -442,13 +451,17 @@ def forward(
     ctx = Ctx(cfg=cfg, mode=mode, cos=cos, sin=sin, pos=pos, enc_out=enc_out,
               shared=getattr(params, "shared_attn", None))
 
+    # per-block recomputation under grad, as the reference's train mode
+    # remats its segment scans; serving runs without grad and keeps none
+    remat = mode == "train" and torch.is_grad_enabled()
     new_caches = {}
     for name, blocks in params.segments.items():
         kind = name.split("_", 1)[1]
         seg_cache = None if caches is None else caches[name]
         x, new_caches[name] = _run(
             blocks, x, seg_cache,
-            lambda pp, xc, cc, kind=kind: apply_block(kind, pp, xc, ctx, cc))
+            lambda pp, xc, cc, kind=kind: apply_block(kind, pp, xc, ctx, cc),
+            remat=remat)
 
     x = rmsnorm(x, params.final_norm, cfg.rms_eps)
     if cfg.tie_embeddings:

@@ -37,6 +37,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch._device import device_context, resolve_device
+from repro_torch._device import same_device as _same_device
 from repro_torch.core.api import TopoPlan, make_topo_plan
 from repro_torch.core.graph import GraphBatch, from_edge_lists
 from repro_torch.core.persistence import REDUCERS, Diagrams
@@ -233,18 +234,6 @@ def _count_triangles(edge_set, n_vertices: int) -> int:
     for (u, v) in edge_set:
         a[u, v] = a[v, u] = 1
     return int(np.trace(a @ a @ a) // 6)
-
-
-def _same_device(a: torch.device, b: torch.device) -> bool:
-    """Whether two devices name the same one (an index-less CUDA device
-    is the current card)."""
-    if a.type != b.type:
-        return False
-    if a.type != "cuda" or a.index == b.index:
-        return True
-    cur = torch.cuda.current_device()
-    return (cur if a.index is None else a.index) == (
-        cur if b.index is None else b.index)
 
 
 def _row(d: Diagrams, i: int) -> Diagrams:

@@ -24,6 +24,9 @@ CPU logits decide the argmax beyond rtol 2e-2, atol 2e-2.  ``exact_w`` on the ca
 held against the CPU port within rtol 1e-6, atol 1e-5: the expanded totals
 are f32 sums in another order, the collapsed W^q float64 sums in another
 order rounded once, and a square root of a total near 0 magnifies an ulp.
+A train step on the card is held against the CPU port's within
+``train.testing.TRAIN_TOLERANCE``; a checkpoint restored onto the card
+is bitwise the saved state.
 """
 import numpy as np
 import pytest
@@ -930,3 +933,52 @@ def test_lm_generate_on_the_card_matches_cpu(cuda, arch):
     compared, ok = compare_generated(got, want, 16,
                                      generated_held(cpu, cfg, want, 16))
     assert ok and compared >= 8, compared
+
+
+# --------------------------------------------------- LM training on the card
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "olmoe-1b-7b"])
+def test_lm_train_step_on_the_card_matches_cpu(cuda, arch):
+    """One ``make_train_step`` (grad_accum 2, batch 4 x 32) of a reduced
+    dense and a reduced MoE model on the card against the CPU port from
+    one drawn tree, within ``train.testing.TRAIN_TOLERANCE``."""
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.models.testing import random_params
+    from repro_torch.train.testing import train_step_agreement
+
+    cfg = reduced_config(arch)
+    tokens = np.random.default_rng(5).integers(0, cfg.vocab_size, (4, 32))
+    row = train_step_agreement(cfg, random_params(cfg, 5),
+                               {"tokens": tokens}, (cuda, "cpu"))
+    assert row["ok"], row
+
+
+def test_lm_checkpoint_round_trip_onto_the_card(cuda, tmp_path):
+    """A TrainState trained one step on the CPU, saved, and restored onto
+    the card: every leaf bitwise, on the card, in its dtype; a step there
+    then agrees with the CPU's within the train tolerance."""
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.models.testing import random_params
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.testing import TRAIN_LOSS_RTOL
+    from repro_torch.train.train_step import TrainState, make_train_step
+
+    cfg = reduced_config("qwen3-1.7b")
+    model = lm_params_from_numpy(random_params(cfg, 6), cfg, device="cpu")
+    state = TrainState(params=model, opt=adamw_init(model))
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (2, 32)))
+    step = make_train_step(cfg, base_lr=1e-3)
+    state, _ = step(state, {"tokens": tokens})
+    ckpt.save(str(tmp_path), 1, state, save_shards=3)
+    got, at, _ = ckpt.restore(str(tmp_path), state, device=cuda)
+    assert at == 1
+    for (name, a), (_, b) in zip(ckpt._flatten(got), ckpt._flatten(state)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype, name
+        assert torch.equal(a.cpu(), b), name
+    got, m_card = step(got, {"tokens": tokens.to(cuda)})
+    state, m_cpu = step(state, {"tokens": tokens})
+    np.testing.assert_allclose(m_card["loss"].item(), m_cpu["loss"].item(),
+                               rtol=TRAIN_LOSS_RTOL)

@@ -344,7 +344,10 @@ def test_new_modules_import_neither_jax_nor_repro():
             "repro_torch.core.persistence_ref, repro_torch.models, "
             "repro_torch.models.transformer, repro_torch.models.testing, "
             "repro_torch.configs.registry, repro_torch.data.tokens, "
-            "repro_torch.serve.serve_step, repro_torch.convert\n"
+            "repro_torch.serve.serve_step, repro_torch.convert, "
+            "repro_torch.train, repro_torch.train.optimizer, "
+            "repro_torch.train.train_step, repro_torch.train.checkpoint, "
+            "repro_torch.train.testing, repro_torch.launch.train\n"
             "from repro_torch.configs.registry import ARCHS, get_config\n"
             "[get_config(a) for a in ARCHS]\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
