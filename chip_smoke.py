@@ -51,6 +51,16 @@ port's ten paths:
   config's caps, at the config's batch and at 4096 graphs, on
   ``make_serve_mesh()`` and on a 4-shard serve mesh that repeats the card;
   bitwise the unsharded call and, on the first 64 graphs, the CPU port;
+* the dry run (``launch/dryrun.py``): its three tda_ego cells (the
+  single-phase call, the reduce phase, and the persist phase at the
+  default ladder's middle rung) run on ``make_serve_mesh()`` at 64 and
+  4096 ego nets, timed with their peak memory, launches and bound, bitwise
+  the CPU port on the first 64 graphs and the ``repack="on"`` plan; its LM
+  cells, every arch x shape counted on the 1-pod production mesh over
+  meta devices (one line a cell: per-device arguments, fit, FLOPs, bytes,
+  the dominant term and bound), qwen3-1.7b train_4k also at full depth,
+  and qwen3-1.7b's prefill and decode steps counted on meta and run on
+  the card with equal FLOPs, each time beside its bound;
 * TopoStream over 4096 graphs of n_pad 64: an ego-decay stream (the
   hit-heavy regime) and a community-churn stream scoring drift with
   ``exact_w`` at ``auto:q0.99`` (the recompute-bound regime).  Each step's
@@ -2288,6 +2298,292 @@ def phase_tda_ego(dev, launches, recorder) -> dict:
     return out
 
 
+# the dry run (launch/dryrun.py): its tda_ego cells run for real on
+# make_serve_mesh() at the config's batch (64 a device) and at all 4096 ego
+# nets; its LM cells are counted on the 1-pod production mesh over meta
+# devices, every arch x shape by depth probes (in DRYRUN_WORKERS spawned
+# processes), qwen3-1.7b train_4k also at full depth; and qwen3-1.7b at
+# PR 31's serving shape (8 x 128 prefill into a cache of 192, one decode
+# step at batch 8) counted on meta and on the card
+DRYRUN_TDA_GRAPHS = (None, 4096)
+DRYRUN_CPU_GRAPHS = 64
+DRYRUN_WORKERS = 4
+DRYRUN_QWEN3 = dict(batch=8, prompt=128, s_kv=192)
+DRYRUN_XCOST_RTOL = 1e-9
+
+
+def _tda_rows(d, rows):
+    """Diagrams ``d`` at ``rows`` (a slice or index tensor), on the CPU."""
+    return type(d)(*(getattr(d, k)[rows].cpu() for k in
+                     ("birth", "death", "dim", "valid")))
+
+
+def _dryrun_tda_checks(graphs, dev) -> dict:
+    """The three checks of a TDA size: the card's reduce phase, persist
+    phase and single-phase Diagrams bitwise the CPU port's on the first
+    DRYRUN_CPU_GRAPHS graphs; reduce -> persist bitwise the port's
+    repack="on" plan with its ladder pinned to the middle rung (the rows
+    of the graphs that fit it), and the fit count equal to the graphs the
+    default-ladder plan puts in rungs up to the middle one."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.tda_ego import config
+    from repro_torch.core.api import (make_topo_plan,
+                                      topological_signature_sharded)
+    from repro_torch.core.persistence import diagrams_bitwise_equal
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch import make_serve_mesh
+
+    cfg = config()
+    mesh, cpu_mesh = dr.tda_mesh(), make_serve_mesh(devices=["cpu"])
+    b = dr.tda_batch_size(mesh, graphs)
+    g = dr.tda_graphs(b, dev)
+    n_cpu = min(DRYRUN_CPU_GRAPHS, b)
+    g_cpu = _subset(g, range(n_cpu)).to("cpu")
+    kw = dict(dim=cfg.max_dim, sublevel=cfg.sublevel)
+    mid = dr.middle_rung()
+
+    def persist(gm, m):
+        return topological_signature_sharded(
+            gm, m, method="none", edge_cap=mid.edge_cap, tri_cap=mid.tri_cap,
+            **kw)
+
+    d = topological_signature_sharded(g, mesh, method="both",
+                                      edge_cap=cfg.edge_cap,
+                                      tri_cap=cfg.tri_cap, **kw)
+    d_cpu = topological_signature_sharded(g_cpu, cpu_mesh, method="both",
+                                          edge_cap=cfg.edge_cap,
+                                          tri_cap=cfg.tri_cap, **kw)
+    check(diagrams_bitwise_equal(_tda_rows(d, slice(0, n_cpu)), d_cpu),
+          f"dryrun_tda ego_pd at {b}: the first {n_cpu} graphs differ from "
+          f"the CPU port's")
+    red = dr.reduce_phase(g, mesh)
+    red_cpu = dr.reduce_phase(g_cpu, cpu_mesh)
+    check(all(torch.equal(x[:n_cpu].cpu(), y) for x, y in zip(red, red_cpu)),
+          f"dryrun_tda ego_pd_reduce at {b}: adj, mask, f or counts differ "
+          f"from the CPU port's")
+    gm, idx = dr.persist_input(red, mesh)
+    dm = persist(gm, mesh)
+    gm_cpu, idx_cpu = dr.persist_input(red_cpu, cpu_mesh)
+    k = int((idx < n_cpu).sum())
+    check(torch.equal(idx[:k].cpu(), idx_cpu)
+          and diagrams_bitwise_equal(_tda_rows(dm, slice(0, k)),
+                                     _tda_rows(persist(gm_cpu, cpu_mesh),
+                                               slice(0, k))),
+          f"dryrun_tda ego_pd_persist at {b}: differs from the CPU port's "
+          f"on the first {n_cpu} graphs")
+
+    plan_kw = dict(method="both", edge_cap=cfg.edge_cap, tri_cap=cfg.tri_cap,
+                   repack="on", **kw)
+    report = make_topo_plan(**plan_kw).execute_info(g)[1]
+    hist = report.rung_histogram()
+    in_mid = sum(v for n, v in hist.items() if n <= mid.n_pad)
+    fit = int(idx.numel())
+    check(fit == in_mid, f"dryrun_tda at {b}: {fit} graphs fit the middle "
+                         f"rung, the repack plan put {in_mid} up to it")
+    pinned, rep = make_topo_plan(**plan_kw, ladder=(mid,)).execute_info(g)
+    s = dm.birth.shape[-1]
+    rows = type(pinned)(*(getattr(pinned, f)[idx, :s].cpu() for f in
+                          ("birth", "death", "dim", "valid")))
+    check(torch.equal(torch.from_numpy((rep.class_index == 0).nonzero()[0]),
+                      idx.cpu())
+          and diagrams_bitwise_equal(rows, _tda_rows(dm, slice(0, fit)))
+          and not bool(pinned.valid[idx, s:].any()),
+          f"dryrun_tda at {b}: reduce -> persist differs from the "
+          f"repack='on' plan pinned to the middle rung")
+    return {"graphs": b, "cpu_bitwise_graphs": n_cpu,
+            "cpu_bitwise_persisted": k, "fit_middle_rung": fit,
+            "middle_rung": dataclasses.asdict(mid),
+            "repack_on_histogram": {f"n{n}": v for n, v in
+                                    sorted(hist.items())},
+            "repack_pinned_bitwise": True}
+
+
+def phase_dryrun_tda(dev, launches, card) -> dict:
+    """The dry run's three tda_ego cells through ``dryrun.run_cell`` on
+    ``make_serve_mesh()`` at the config's batch and at 4096 ego nets: each
+    cell's steady time (CUDA events, mean of 3 after a warm-up), peak
+    memory, launches of one run and bound, then the three checks of
+    :func:`_dryrun_tda_checks` at each size.  ``kcore_peel``,
+    ``domination`` and ``gf2_reduce`` must all launch; the cells' launches
+    join the kernels line."""
+    from repro_torch.launch import dryrun as dr
+
+    t0 = time.perf_counter()
+    out = {"phase": "dryrun_tda", "card": card, "cells": [], "checks": []}
+    phase_counts = {k: 0 for k in launches}
+    for graphs in DRYRUN_TDA_GRAPHS:
+        for shape in dr.TDA_SHAPES:
+            cell = dr.run_cell("tda_ego", shape, False, graphs=graphs)
+            check("skipped" not in cell, f"dryrun_tda {shape}: skipped")
+            for k, v in cell["launches"].items():
+                phase_counts[k] += v
+            out["cells"].append({
+                k: cell[k] for k in (
+                    "shape", "graphs", "graphs_in", "fit", "padded", "mesh",
+                    "ms", "bound_ms", "bound_parts_ms", "launches",
+                    "loop_rounds", "aten_ops") if k in cell}
+                | {"peak_gb": cell["memory"]["peak_bytes"] / 1e9,
+                   "peak_gb_of_cell":
+                   cell["memory"]["peak_bytes_of_cell"] / 1e9})
+        out["checks"].append(_dryrun_tda_checks(graphs, dev))
+    check(all(phase_counts[k] > 0 for k in
+              ("kcore_peel", "domination", "gf2_reduce")),
+          "dryrun_tda: a TDA kernel was never launched")
+    out["launches"] = _add_counts(launches, phase_counts)
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def _xcost_cell(cell):
+    """One LM cell by depth probes (a worker process's task)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import dryrun as dr
+
+    return dr.run_cell_xcost(*cell, False)
+
+
+def _lm_cell_line(cell) -> dict:
+    """A dry-run cell as one line: per-device argument GiB, fits, FLOPs,
+    bytes, dominant term and bound."""
+    import math
+
+    r, mem = cell["roofline"], cell["memory"]
+    for k in ("hlo_flops_per_device", "hlo_bytes_per_device", "bound_s"):
+        check(math.isfinite(r[k]) and r[k] > 0,
+              f"dryrun_lm {cell['arch']}/{cell['shape']}: {k} = {r[k]}")
+    return {"phase": "dryrun_lm", "cell": f"{cell['arch']}/{cell['shape']}",
+            "argument_gib": mem["argument_bytes"] / 2**30,
+            "fits": mem["fits"], "flops": r["hlo_flops_per_device"],
+            "bytes": r["hlo_bytes_per_device"], "dominant": r["dominant"],
+            "bound_s": r["bound_s"], "count_s": cell["compile_s"]}
+
+
+def _qwen3_serving_counts(dev, card) -> dict:
+    """qwen3-1.7b at PR 31's serving shape: the prefill and one decode step
+    counted on meta and run on the card under ``count_step``; the FLOPs
+    must be equal; each step's card time (CUDA events, after a warm-up)
+    beside its bound."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch import roofline as rl
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.serve.serve_step import (make_decode_step,
+                                              make_prefill_step)
+
+    cfg = get_config("qwen3-1.7b")
+    b, s0, s_kv = (DRYRUN_QWEN3[k] for k in ("batch", "prompt", "s_kv"))
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    meta = torch.device("meta")
+    m_meta = tf.Model(cfg, None, meta)
+    toks_meta = torch.zeros((b, s0), dtype=torch.int32, device=meta)
+    c_meta = tf.init_caches(cfg, b, s_kv, device=meta)
+    want = {"prefill": rl.count_step(prefill, m_meta, toks_meta, c_meta, {}),
+            "decode": rl.count_step(decode, m_meta, toks_meta[:, :1],
+                                    c_meta, s0, {})}
+    model = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    toks = TokenStream(cfg.vocab_size, b, s0, seed=0).batch_at(
+        0, device=dev)["tokens"]
+    caches = tf.init_caches(cfg, b, s_kv, device=dev)
+    runs = {"prefill": lambda: prefill(model, toks, caches, {}),
+            "decode": lambda: decode(model, toks[:, -1:], caches, s0, {})}
+    out = {"card": card, "batch": b, "prompt": s0, "s_kv": s_kv}
+    shapes = {"prefill": ShapeConfig("serve", "prefill", s0, b),
+              "decode": ShapeConfig("serve", "decode", s_kv, b)}
+    for name, run in runs.items():
+        run()  # warm-up: cuBLAS handles and heuristics
+        got = rl.count_step(run)
+        check(got["flops"] == want[name]["flops"],
+              f"dryrun_lm qwen3 {name}: the card counts {got['flops']} "
+              f"FLOPs, meta {want[name]['flops']}")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            run()
+        end.record()
+        end.synchronize()
+        terms = rl.step_roofline_terms(
+            want[name]["flops"], want[name]["bytes_accessed"], {},
+            rl.model_flops_for(cfg, shapes[name]), chips=1)
+        out[name] = {"flops_meta": want[name]["flops"],
+                     "flops_card": got["flops"], "flops_equal": True,
+                     "bytes_meta": want[name]["bytes_accessed"],
+                     "bytes_card": got["bytes_accessed"],
+                     "fusion_adjusted_bytes":
+                     want[name]["fusion_adjusted_bytes"],
+                     "card_ms": start.elapsed_time(end) / 5,
+                     "bound_ms": terms["bound_s"] * 1e3,
+                     "bound_by": terms["dominant"],
+                     "memory_adjusted_ms": want[name]["fusion_adjusted_bytes"]
+                     / rl.HBM_BYTES_PER_S * 1e3}
+    del model, caches
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dryrun_lm(dev, card) -> dict:
+    """The dry run's LM cells on the 1-pod production mesh over meta
+    devices: every arch x shape by depth probes (one line a cell), the
+    skips exactly ``repro``'s (long_500k on full attention), qwen3-1.7b
+    train_4k also at full depth (one microbatch) and equal to its probes'
+    extrapolation; then qwen3-1.7b's serving steps counted on meta and on
+    the card (:func:`_qwen3_serving_counts`).  Launches no TDA kernel."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch import counters
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun as dr
+
+    t0 = time.perf_counter()
+    counters.reset()
+    lm = [c for c in dr.cells() if c[0] != "tda_ego"]
+    with ProcessPoolExecutor(
+            max_workers=DRYRUN_WORKERS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        results = list(pool.map(_xcost_cell, lm))
+    skipped = []
+    for (arch, shape), cell in zip(lm, results):
+        if "skipped" in cell:
+            skipped.append(f"{arch}/{shape}")
+            continue
+        emit(_lm_cell_line(cell))
+    want_skips = [f"{a}/{s}" for a, s in lm if s == "long_500k"
+                  and not get_config(a).supports_long_context]
+    check(skipped == want_skips, f"dryrun_lm skipped {skipped}, repro "
+                                 f"skips {want_skips}")
+    xcost_s = time.perf_counter() - t0
+
+    full = dr.run_cell("qwen3-1.7b", "train_4k", False, micro=True)
+    probes = results[lm.index(("qwen3-1.7b", "train_4k"))]
+    for k in ("hlo_flops_per_device", "hlo_bytes_per_device",
+              "hlo_bytes_adjusted_per_device"):
+        a, b = full["roofline"][k], probes["roofline"][k]
+        check(abs(a - b) <= DRYRUN_XCOST_RTOL * abs(b),
+              f"dryrun_lm qwen3-1.7b/train_4k: full depth {k} {a} vs "
+              f"probes {b}")
+    check(full["memory"] == probes["memory"],
+          "dryrun_lm qwen3-1.7b/train_4k: full-depth memory differs")
+    serving = _qwen3_serving_counts(dev, card)
+    launches = sum(counters.KERNEL_LAUNCHES.values())
+    check(launches == 0, "the dry run's LM cells launched a TDA kernel")
+    return {"phase": "dryrun_lm", "mesh": "production (16, 16) over meta",
+            "cells": len(lm), "counted": len(lm) - len(skipped),
+            "skipped": skipped, "xcost_s": xcost_s,
+            "workers": DRYRUN_WORKERS,
+            "qwen3_train_4k_full_depth": {
+                "count_s": full["compile_s"], "aten_ops": full["aten_ops"],
+                "flops": full["roofline"]["hlo_flops_per_device"],
+                "rtol": DRYRUN_XCOST_RTOL, "equal_to_probes": True},
+            "qwen3_serving": serving, "kernel_launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
 def _sorted_pairs(d, dims):
     """Per graph and dimension, the (birth, death) pairs sorted by birth
     then death (absent rows as (inf, inf)) and their count: the tensors
@@ -3879,6 +4175,7 @@ def _time_kcore(adj, alive, k, sweeps) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels.kcore_peel import cluster_size, kcore_peel_cuda
     from repro_torch.launch.roofline import bound_ms
+    from repro_torch.perfgate.cost_cells import kcore_cost
 
     b, n = alive.shape
 
@@ -3903,8 +4200,7 @@ def _time_kcore(adj, alive, k, sweeps) -> dict:
     def kernel():
         return kcore_peel_cuda(adj, alive, k, sweeps)
 
-    bt, by = bound_ms(adj.numel() + 2 * alive.numel(),
-                      {"lane": 3.0 * n_sweeps * b * n * ((n + 31) // 32)})
+    bt, by = bound_ms(*kcore_cost(b, n, n_sweeps))
     sms = torch.cuda.get_device_properties(adj.device).multi_processor_count
     return {"name": "kcore_peel", "shape": [b, n, n], "k": k,
             "sweeps_needed": n_sweeps, "cluster": cluster_size(b, n, sms),
@@ -3925,9 +4221,9 @@ def _domination_bounds(b, n) -> dict:
     floor of a packed AND-NOT form, B*N^2*ceil(N/32) popcounts on the
     multi-function units."""
     from repro_torch.launch.roofline import MUFU_OPS_PER_S, bound_ms
+    from repro_torch.perfgate.cost_cells import domination_cost
 
-    bt, by = bound_ms(2 * b * n * n + b * n,
-                      {"int8_tc": float(b) * n * n * (n + 1)})
+    bt, by = bound_ms(*domination_cost(b, n))
     return {"bound_ms": bt, "bound_by": by,
             "popcount_floor_ms": b * n * n * ((n + 31) // 32)
             / MUFU_OPS_PER_S * 1e3}
@@ -4003,17 +4299,15 @@ def _time_gf2(blocks, n_rows) -> dict:
     from repro_torch.kernels import gf2_reduce as gf2
     from repro_torch.kernels import ref
     from repro_torch.launch.roofline import bound_ms
+    from repro_torch.perfgate.cost_cells import gf2_cost
 
     def kernel():
         return gf2.gf2_reduce_cuda(blocks, n_rows)
 
     chains = _gf2_chains(blocks, n_rows, kernel())
-    moved, ops = 0, 0.0
-    for blk, r, c in zip(blocks, n_rows, chains):
-        g_, s_, w_ = blk.shape
-        moved += 2 * blk.numel() * 4 + g_ * r * 4 + g_ * s_
-        ops += 2.0 * w_ * (c["se"] + c["adds"])
-    bt, by = bound_ms(moved, {"lane": ops})
+    bt, by = bound_ms(*gf2_cost([(*blk.shape, r, c["se"] + c["adds"])
+                                 for blk, r, c in zip(blocks, n_rows,
+                                                      chains)]))
     steps = torch.cat([c["steps"] for c in chains])
     steps_max = int(steps.max()) if steps.numel() else 0
     dev_ms = device_ms(kernel)
@@ -4510,6 +4804,9 @@ def main() -> int:
             emit(phase_strong_collapse_table3(dev, launches, recorder))
             emit(phase_ego_fig5b(dev, launches, recorder))
             emit(phase_tda_ego(dev, launches, recorder))
+            card = card_line()
+            emit(phase_dryrun_tda(dev, launches, card))
+            emit(phase_dryrun_lm(dev, card))
             streams = {}
             for name, make, cfg in (
                     ("stream_ego_decay_n64",
@@ -4563,7 +4860,6 @@ def main() -> int:
             recorder, "sharded_index_n65536", only=("hamming_scan",))
         emit({"phase": "kernel_times", "at": at})
         emit(phase_hamming_large(dev))
-        card = card_line()
         emit(phase_lm_families(dev))
         emit(phase_lm_serve_qwen3(dev, card))
         emit(phase_lm_train_families(dev))

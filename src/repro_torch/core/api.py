@@ -217,17 +217,18 @@ def _pipeline(g: GraphBatch, key: TopoPlanKey) -> Diagrams:
         quad_cap=key.quad_cap, sublevel=key.sublevel, reducer=key.reducer)
 
 
-def _execute_sharded(g: GraphBatch, key: TopoPlanKey) -> Diagrams:
-    """``_pipeline`` over ``key.mesh``: equal contiguous shards along dim 0
-    in ``mesh.flat`` order (``repro``'s ``P(mesh.axis_names)`` spec), each
-    on its device, one after another; input-order rows on the batch's
-    device.  A batch the mesh size does not divide raises: padding is the
-    caller's job (TopoServe pads its batches)."""
-    devices = key.mesh.flat
+def map_shards(g: GraphBatch, mesh: DeviceMesh, fn) -> list:
+    """``fn`` over equal contiguous shards of ``g`` along dim 0 in
+    ``mesh.flat`` order (``repro``'s ``shard_map`` over
+    ``P(mesh.axis_names)``), each shard on its device and run under it, one
+    after another; returns the shards' outputs in order.  A batch the mesh
+    size does not divide raises: padding is the caller's job (TopoServe
+    pads its batches)."""
+    devices = mesh.flat
     if g.batch % len(devices):
         raise ValueError(
             f"a batch of {g.batch} graphs is not evenly divisible by the "
-            f"mesh size {len(devices)} (axes {key.mesh.axis_names}); pad "
+            f"mesh size {len(devices)} (axes {mesh.axis_names}); pad "
             f"the batch to a multiple of it")
     per = g.batch // len(devices)
     parts = []
@@ -236,7 +237,14 @@ def _execute_sharded(g: GraphBatch, key: TopoPlanKey) -> Diagrams:
         shard = GraphBatch(adj=g.adj[rows].to(dev), mask=g.mask[rows].to(dev),
                            f=g.f[rows].to(dev))
         with device_context(dev):
-            parts.append(_pipeline(shard, key))
+            parts.append(fn(shard))
+    return parts
+
+
+def _execute_sharded(g: GraphBatch, key: TopoPlanKey) -> Diagrams:
+    """``_pipeline`` over ``key.mesh`` (:func:`map_shards`); input-order
+    rows on the batch's device."""
+    parts = map_shards(g, key.mesh, lambda shard: _pipeline(shard, key))
     if len(parts) == 1:
         return parts[0].to(g.device)
     return Diagrams(*(torch.cat([getattr(d, name).to(g.device)

@@ -7,8 +7,9 @@ surface and lays the retrieve path over the devices of a
 
 * **row stores**: packed LSH codes (int32 words) and compacted clouds are
   cut in contiguous row blocks over the *flattened* mesh, shard ``p`` of
-  ``P`` owning rows ``[p*per, (p+1)*per)`` (``repro``'s
-  ``launch.sharding.index_row_spec``), each block on its shard's device;
+  ``P`` owning rows ``[p*per, (p+1)*per)``
+  (:func:`repro_torch.launch.sharding.index_row_spec`), each block on its
+  shard's device;
 * **coarse stage on the device**: :func:`repro_torch.index.topo_index.
   device_scan`, the single-host index's own device scan, over the shards'
   blocks: per shard the Hamming kernel and a local top-``m`` on the int64
@@ -17,8 +18,8 @@ surface and lays the retrieve path over the devices of a
   top-``m``, so the candidates equal the single-host scan's, ties
   included; at P = 1 the two indexes run the same code;
 * **SUMMA Gram**: for ``coarse="none"`` and :meth:`gram`, corpus rows split
-  over ``"row"`` and the embedding width over ``"col"`` (``repro``'s
-  ``launch.sharding.index_gram_specs``).  Query blocks step around the
+  over ``"row"`` and the embedding width over ``"col"``
+  (:func:`repro_torch.launch.sharding.index_gram_specs`).  Query blocks step around the
   ``"row"`` ring: at step ``s`` mesh row ``r`` holds query block
   ``(r - s) mod R``, computes the pairwise-L1 partial of each column's
   width slice, and sums the ``C`` partials in column order;

@@ -14,9 +14,10 @@ Fault tolerance, as in ``repro``:
   * a step slower than ``deadline_x`` times the rolling median of the last
     50 is counted as a straggler (accounting only).
 
-Training runs on one device.  A mesh of more than one raises: sharded
-training (``repro``'s param/opt shardings over ("data", "model")) is not
-ported yet.
+Training runs on one device.  A mesh of more than one raises: the
+param/opt shardings over ("data", "model") exist
+(:mod:`repro_torch.launch.sharding`) and size a mesh in the dry run, but
+no step runs partitioned over several cards yet.
 """
 from __future__ import annotations
 
@@ -68,9 +69,9 @@ def train(arch: str, steps: int, batch: int, seq: int, ckpt_dir: str | None,
     mesh = make_host_mesh(None if device is None else [dev])
     if mesh.size > 1:
         raise NotImplementedError(
-            f"a {tuple(mesh.shape.values())} mesh: sharded training is not "
-            f"ported yet (ROADMAP Queue 1 item 3.3); pass device= to train "
-            f"on one device")
+            f"a {tuple(mesh.shape.values())} mesh: training over several "
+            f"cards is not built yet (ROADMAP Queue 1 item 4); pass device= "
+            f"to train on one device")
     return _train_inner(cfg, mesh.flat[0], steps, batch, seq, ckpt_dir,
                         ckpt_every, lr, grad_accum, deadline_x, log_every,
                         seed)

@@ -69,8 +69,9 @@ def mrope_tables(positions: torch.Tensor, dim: int, theta: float,
     selects which position stream drives the angle."""
     half = dim // 2
     assert sum(sections) == half, (sections, half)
-    sec_id = torch.cat([torch.full((s,), i, dtype=torch.long)
-                        for i, s in enumerate(sections)]).to(positions.device)
+    sec_id = torch.cat([torch.full((s,), i, dtype=torch.long,
+                                   device=positions.device)
+                        for i, s in enumerate(sections)])
     pos_sel = positions.float().index_select(-1, sec_id)
     ang = pos_sel * _freq(dim, theta, positions.device)
     return torch.cos(ang), torch.sin(ang)
@@ -290,7 +291,11 @@ def moe_route(p: MoE, xt: torch.Tensor, cfg, cap: int):
     top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_p, top_e = top_p[..., :k], top_e[..., :k]
     top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
-    onehot = F.one_hot(top_e, e).float()
+    # a comparison with the expert ids, not F.one_hot, whose CPU form
+    # checks the ids' range on the host and whose meta form is other ops:
+    # every device then dispatches (and the dry run counts) the same ops
+    experts = torch.arange(e, device=top_e.device)
+    onehot = (top_e[..., None] == experts).float()
     flat = onehot.reshape(g, tb * k, e)
     pos_in_e = (flat.cumsum(1) - flat).reshape(g, tb, k, e)
     pos = (pos_in_e * onehot).sum(-1)

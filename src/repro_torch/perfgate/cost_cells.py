@@ -5,7 +5,9 @@ A benchmark row or a trace span names a kernel family and carries its shape
 as tokens (``B32_N128``, ``G128_D512``, ``B64_M32``, ``S512``).  Each family
 has a model of the bytes it must move and the operations it must do, by
 unit, as functions of those tokens: the counts ``chip_smoke.py`` makes for
-its kernel rows, on the peaks of :mod:`repro_torch.launch.roofline`.  Where
+its kernel rows (``kcore_cost``, ``domination_cost`` and ``gf2_cost`` are
+those counts, which the dry run's launch bounds use too), on the peaks of
+:mod:`repro_torch.launch.roofline`.  Where
 ``PERF.md`` §6 counts work that depends on the data (the weighted Sinkhorn
 pairs, the auction's scans, the GF(2) chase's steps, the live edges of a
 common-neighbors Gram, the k-core sweeps), the model here counts what the
@@ -42,19 +44,45 @@ def _words(n: int) -> int:
     return max(-(-n // 32), 1)
 
 
+def kcore_cost(b: int, n: int, sweeps: int) -> tuple[float, dict]:
+    """(bytes, ops by unit) of a ``kcore_peel`` launch over a (B, N, N)
+    batch that runs ``sweeps`` sweeps: one read of adj and alive and one
+    write of alive; an AND and a popcount and an add a word a sweep."""
+    return (b * n * n + 2.0 * b * n,
+            {"lane": 3.0 * sweeps * b * n * _words(n)})
+
+
+def domination_cost(b: int, n: int) -> tuple[float, dict]:
+    """(bytes, ops by unit) of a ``domination`` launch: one read of adj and
+    mask, one write of the (B, N, N) output, and the Gram's B·N²·(N+1)
+    int8 operations (its N(N+1)/2 distinct inner products a graph, an FMA
+    as two) on the tensor cores."""
+    return 2.0 * b * n * n + b * n, {"int8_tc": float(b) * n * n * (n + 1)}
+
+
+def gf2_cost(blocks) -> tuple[float, dict]:
+    """(bytes, ops by unit) of a ``gf2_reduce`` launch over ``blocks``,
+    each ``(G, S, W, R, steps)`` with ``steps`` the chase's steps summed
+    over the block's matrices (one past the last nonzero column plus the
+    additions): each block's int32 words read and written, owner and
+    positive written, and a low and an XOR of W words a step."""
+    moved = sum(2 * g * s * w * 4 + g * r * 4 + g * s
+                for g, s, w, r, _ in blocks)
+    return moved, {"lane": sum(2.0 * w * steps
+                               for _, _, w, _, steps in blocks)}
+
+
 def _pairwise_l1(s):
     g, d = s["G"], s["D"]
     return 4.0 * (2 * g * d + g * g), {"lane": 2.0 * g * g * d}
 
 
 def _domination(s):
-    b, n = s["B"], s["N"]
-    return 2.0 * b * n * n + b * n, {"int8_tc": float(b) * n * n * (n + 1)}
+    return domination_cost(s["B"], s["N"])
 
 
 def _kcore(s):
-    b, n = s["B"], s["N"]
-    return b * n * n + 2.0 * b * n, {"lane": 3.0 * b * n * _words(n)}
+    return kcore_cost(s["B"], s["N"], 1)
 
 
 def _common_neighbors(s):

@@ -982,3 +982,50 @@ def test_lm_checkpoint_round_trip_onto_the_card(cuda, tmp_path):
     state, m_cpu = step(state, {"tokens": tokens})
     np.testing.assert_allclose(m_card["loss"].item(), m_cpu["loss"].item(),
                                rtol=TRAIN_LOSS_RTOL)
+
+
+# ------------------------------------------------------------- the dry run
+
+@pytest.mark.parametrize("phase", ["reduce", "persist"])
+def test_dryrun_tda_two_phase_cells_on_the_card_match_cpu(cuda, phase):
+    """The dry run's ``ego_pd_reduce`` and ``ego_pd_persist`` cells at the
+    tda_ego config's 64 graphs on ``make_serve_mesh()``: every output
+    bitwise the CPU port's on the same ego nets (the reduce phase's adj,
+    mask, f and counts; the persist phase's input and Diagrams)."""
+    from repro_torch.core.persistence import diagrams_bitwise_equal
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch import make_serve_mesh
+
+    step, (g,), info = dr.tda_two_phase_specs(dr.tda_mesh(), phase)
+    want_step, (want_g,), want_info = dr.tda_two_phase_specs(
+        make_serve_mesh(devices=["cpu"]), phase, graphs=g.batch)
+    assert info == want_info and g.adj.device.type == "cuda"
+    for name in ("adj", "mask", "f"):
+        assert torch.equal(getattr(g, name).cpu(), getattr(want_g, name))
+    got, want = step(g), want_step(want_g)
+    if phase == "reduce":
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    else:
+        assert diagrams_bitwise_equal(got, want)
+
+
+def test_dryrun_count_step_flops_on_meta_equal_the_cards(cuda):
+    """qwen3-1.7b at full width, an 8 x 128 prefill: ``count_step`` on
+    meta tensors counts exactly the FLOPs it counts on the card."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import roofline as rl
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.serve_step import make_prefill_step
+
+    cfg = get_config("qwen3-1.7b")
+    prefill = make_prefill_step(cfg)
+    counts = {}
+    for dev in ("meta", cuda):
+        model = (tf.Model(cfg, None, torch.device("meta")) if dev == "meta"
+                 else tf.init_params(cfg, torch.Generator(device=dev)
+                                     .manual_seed(0), device=dev))
+        toks = torch.zeros((8, 128), dtype=torch.int32, device=dev)
+        caches = tf.init_caches(cfg, 8, 192, device=dev)
+        counts[str(dev)] = rl.count_step(prefill, model, toks, caches, {})
+        del model, caches
+    assert counts["meta"]["flops"] == counts[str(cuda)]["flops"] > 0

@@ -286,11 +286,11 @@ def test_entry_points_need_cuda_unless_asked(monkeypatch, tmp_path):
 
 
 def test_train_refuses_a_mesh_of_several_devices(monkeypatch):
-    """Sharded training is not ported: a host mesh of two devices raises
-    instead of training on one."""
+    """Training over several cards is not built: a host mesh of two
+    devices raises instead of training on one."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(train_mod, "make_host_mesh",
                         lambda devices=None: train_mod._mesh(
                             (2, 1), ("data", "model"), ["cpu"] * 2))
-    with pytest.raises(NotImplementedError, match="3.3"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         train_mod.train("qwen3-1.7b", 1, 2, 16, None)
